@@ -1,16 +1,18 @@
 """qrag_tpu_torch — the PyTorch/CUDA port of ``qrag_tpu``.
 
 Exact retrieval (norm-bounded window pruning over a device-resident
-corpus) and the fused quantum-fidelity rerank, served over HTTP, on
-PyTorch with a hand-written CUDA C++ kernel for NVIDIA Hopper.  The JAX
-package ``qrag_tpu`` is the reference; this package imports no jax.
+corpus, bf16 or int8 scan), the int8-quantized index, and the fused
+quantum-fidelity rerank, served over HTTP, on PyTorch with hand-written
+CUDA C++ kernels for NVIDIA Hopper.  The JAX package ``qrag_tpu`` is the
+reference; this package imports nothing of jax or ``qrag_tpu``.
 
 Layer map (bottom-up):
   csrc/      CUDA C++ kernels (built with nvcc at first use)
   ops/       plain-torch ops and the kernels' wrappers
-  index/     FAISS-format IO, device-resident flat index
+  index/     FAISS-format IO, device-resident flat and quantized indexes
   engine.py  retrieval + fused fidelity rerank
   serving/   stdlib HTTP server
+  config.py, pipeline/, utils/   config tree, embedders, metrics
 """
 
 import torch

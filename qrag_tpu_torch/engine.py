@@ -6,11 +6,18 @@ path runs retrieval top-C -> gather of the candidates' cached rotation
 features -> analytic fidelity -> top-k on the device, with no host
 round trip between the stages.
 
+``quantization="int8"`` builds the ``QuantizedFlatIndex`` (row or
+window scan, exact or gather-free scores); ``bounded_scan="int8"``
+runs the bounded scan, and the fused rerank's candidate generation,
+on int8 codes.
+
 Not ported yet (raise NotImplementedError, ROADMAP.md Queue 1 slice 2):
 the "auto" and "classical" rerankers and their controller, ``rerank``
 (document-list rerank), ``search_rerank_pipelined``, the routed fused
 graph and the sharded index; the full-statevector fidelity
-(``use_analytic_fidelity=False``, slice 7); int8 quantization (slice 5).
+(``use_analytic_fidelity=False``, slice 7); the fused rerank over a
+quantized index (slice 5: the reference runs it on the unported approx
+scan).
 """
 
 from __future__ import annotations
@@ -24,11 +31,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from qrag_tpu.config import QragConfig
-from qrag_tpu.pipeline.embeddings import Embedder, get_embedder
-from qrag_tpu.utils.metrics import GLOBAL_METRICS, Metrics
+from qrag_tpu_torch.config import QragConfig
 from qrag_tpu_torch.index.flat_index import DeviceFlatIndex, SearchResult
+from qrag_tpu_torch.index.quantized_index import QuantizedFlatIndex
 from qrag_tpu_torch.ops.topk import _finalize, flat_scan_topk, top_k
+from qrag_tpu_torch.pipeline.embeddings import Embedder, get_embedder
+from qrag_tpu_torch.utils.metrics import GLOBAL_METRICS, Metrics
 
 logger = logging.getLogger(__name__)
 
@@ -45,15 +53,18 @@ def _fused_candidates(
     topk_mode: str,
     bounded_bufs=None,
     bounded_query_store: bool = False,
+    bounded_kind: str = "bf16",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Finalized (B, C) retrieval scores + indices for the fused rerank:
     the provably-exact bounded scan when ``bounded_bufs`` (the index's
-    bf16 scan copy, window max norms, lane ranks) are given, else the
-    exact sort."""
+    bounded buffers: the bf16 scan copy, or the int8 codes and margin
+    inputs per ``bounded_kind``) are given, else the exact sort."""
     if topk_mode == "bounded" and bounded_bufs is not None:
-        from qrag_tpu_torch.ops.bounded_topk import bounded_exact_topk
+        from qrag_tpu_torch.ops.bounded_topk import (
+            bounded_exact_topk,
+            bounded_exact_topk_int8,
+        )
 
-        scan, maxnorms, lane_rank = bounded_bufs
         # the margin regime keys off the query DTYPE: rounded queries
         # stay in the store dtype (zero query-rounding error)
         q = (
@@ -61,10 +72,19 @@ def _fused_candidates(
             if bounded_query_store
             else query_vecs.to(torch.float32)
         )
-        vals, idx, _, _, _ = bounded_exact_topk(
-            q, scan, corpus, corpus_sqnorms, maxnorms, lane_rank,
-            candidates, metric=metric, valid_rows=valid_rows,
-        )
+        if bounded_kind == "int8":
+            q8x, wscale, mx, minsq, resid, lr = bounded_bufs
+            vals, idx, _, _, _ = bounded_exact_topk_int8(
+                q.to(torch.float32), q8x, wscale, corpus, corpus_sqnorms,
+                mx, minsq, resid, lr, candidates,
+                metric=metric, valid_rows=valid_rows,
+            )
+        else:
+            scan, maxnorms, lane_rank = bounded_bufs
+            vals, idx, _, _, _ = bounded_exact_topk(
+                q, scan, corpus, corpus_sqnorms, maxnorms, lane_rank,
+                candidates, metric=metric, valid_rows=valid_rows,
+            )
         return _finalize(vals, idx, metric)
     return flat_scan_topk(
         query_vecs.to(corpus.dtype), corpus, candidates, metric=metric,
@@ -85,6 +105,7 @@ def fused_search_rerank(
     topk_mode: str = "exact",
     bounded_bufs=None,
     bounded_query_store: bool = False,
+    bounded_kind: str = "bf16",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Retrieval top-C -> analytic quantum fidelity -> top-k.
 
@@ -97,7 +118,7 @@ def fused_search_rerank(
 
     retr_scores, idx = _fused_candidates(
         query_vecs, corpus, corpus_sqnorms, valid_rows, candidates, metric,
-        topk_mode, bounded_bufs, bounded_query_store,
+        topk_mode, bounded_bufs, bounded_query_store, bounded_kind,
     )  # (B, C)
     q_feat = rotation_features(query_vecs.to(torch.float32), n_qubits)
     fid = fidelity_from_features(q_feat, fid_feats[idx])  # (B, C)
@@ -112,14 +133,10 @@ def fused_search_rerank(
 
 def _index_cls_and_kwargs(config: QragConfig):
     """Single source of truth for building an index from config
-    (single device, no quantization)."""
+    (single device)."""
     if config.index.sharded:
         raise NotImplementedError(
             "the sharded index is not ported yet (ROADMAP.md, Queue 1 slice 6)"
-        )
-    if config.index.quantization != "none":
-        raise NotImplementedError(
-            "int8 quantization is not ported yet (ROADMAP.md, Queue 1 slice 5)"
         )
     kw = dict(
         row_pad_multiple=config.index.row_pad_multiple,
@@ -130,16 +147,12 @@ def _index_cls_and_kwargs(config: QragConfig):
         bounded_query_dtype=config.index.bounded_query_dtype,
         small_batch_accel=config.index.small_batch_accel,
     )
+    if config.index.quantization == "int8":
+        kw["refine_factor"] = config.index.refine_factor
+        kw["scan"] = config.index.quant_scan
+        kw["exact_scores"] = config.index.exact_scores
+        return QuantizedFlatIndex, kw
     return DeviceFlatIndex, kw
-
-
-def _embedder(config: QragConfig) -> Embedder:
-    if config.embedding.provider == "trained":
-        raise NotImplementedError(
-            "the trained bi-encoder embedder is not ported yet (ROADMAP.md, "
-            "Queue 1 slice 3); use provider 'hash' or 'mock'"
-        )
-    return get_embedder(config.embedding)
 
 
 class QragEngine:
@@ -165,7 +178,7 @@ class QragEngine:
             )
         self.index = index
         self.device = index.device
-        self.embedder = embedder or _embedder(self.config)
+        self.embedder = embedder or get_embedder(self.config.embedding)
         self.metrics = metrics or GLOBAL_METRICS
 
     # ------------------------------------------------------------- index ops
@@ -246,6 +259,12 @@ class QragEngine:
             k_eff = min(k, c_eff)
             q = torch.from_numpy(np.ascontiguousarray(qv)).to(self.device)
             if reranker_type == "quantum":
+                if isinstance(self.index, QuantizedFlatIndex):
+                    raise NotImplementedError(
+                        "the fused rerank over a quantized index is not "
+                        "ported yet (ROADMAP.md, Queue 1 slice 5); use "
+                        "reranker_type='none' or an unquantized index"
+                    )
                 if not self.config.quantum.use_analytic_fidelity:
                     raise NotImplementedError(
                         "the full-statevector fidelity is not ported yet "
@@ -284,10 +303,15 @@ class QragEngine:
             candidates
         ):
             # the bufs must derive from the snapshot the graph gathers from
-            snap, bufs = self.index._bounded_buffers(snap=snap)
+            kind = self.index.bounded_scan
+            if kind == "int8":
+                snap, bufs = self.index._bounded_buffers_int8(snap=snap)
+            else:
+                snap, bufs = self.index._bounded_buffers(snap=snap)
             return "bounded", {
                 "bounded_bufs": bufs,
                 "bounded_query_store": self.index.bounded_query_dtype == "store",
+                "bounded_kind": kind,
             }
         return "exact", {}
 
@@ -332,10 +356,12 @@ class QragEngine:
             batch_sizes = self.config.serving.warmup_batch_buckets
         k = min(10, n)  # /search and /search_rerank serving default
         candidates = min(100, n)  # /search_rerank serving default
+        fused = not isinstance(self.index, QuantizedFlatIndex)
         for b in batch_sizes:
             q = np.zeros((b, self.index.d), dtype=np.float32)
             self.index.search(q, k=k)
-            self.search_rerank(q, k=min(k, candidates), candidates=candidates)
+            if fused:
+                self.search_rerank(q, k=min(k, candidates), candidates=candidates)
         dt = time.time() - t0
         logger.info("engine warmup in %.2fs (batch buckets %s)", dt, tuple(batch_sizes))
         return dt
@@ -371,7 +397,9 @@ class QragEngine:
         idx = self.index
         mode = idx.topk_mode
         fused = mode
-        if mode == "bounded":
+        if isinstance(idx, QuantizedFlatIndex):
+            fused = "not ported"
+        elif mode == "bounded":
             c = min(100, max(idx.ntotal, 1))  # serving default budget
             # name-only: an observability call never triggers an upload
             rpm = idx.row_pad_multiple
@@ -393,16 +421,19 @@ class QragEngine:
             ]
         else:
             devices = [str(dev)]
+        index_stats = {
+            "ntotal": self.index.ntotal,
+            "d": self.index.d,
+            "metric": self.index.metric,
+            "topk_mode": self.index.topk_mode,
+            "verified_fallback_rows": self.index.fallback_rows,
+            "bounded_escalations": self.index.bounded_escalations,
+            "effective_topk_modes": self._effective_topk_modes(),
+        }
+        if isinstance(self.index, QuantizedFlatIndex):
+            index_stats["layout"] = self.index.layout()
         return {
-            "index": {
-                "ntotal": self.index.ntotal,
-                "d": self.index.d,
-                "metric": self.index.metric,
-                "topk_mode": self.index.topk_mode,
-                "verified_fallback_rows": self.index.fallback_rows,
-                "bounded_escalations": self.index.bounded_escalations,
-                "effective_topk_modes": self._effective_topk_modes(),
-            },
+            "index": index_stats,
             "backend": dev.type,
             "devices": devices,
             "metrics": self.metrics.snapshot(),

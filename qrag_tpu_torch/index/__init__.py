@@ -1,5 +1,6 @@
-"""Device-resident flat index and FAISS-format IO."""
+"""Device-resident flat indexes and FAISS-format IO."""
 
 from qrag_tpu_torch.index.flat_index import DeviceFlatIndex, SearchResult
+from qrag_tpu_torch.index.quantized_index import QuantizedFlatIndex
 
-__all__ = ["DeviceFlatIndex", "SearchResult"]
+__all__ = ["DeviceFlatIndex", "QuantizedFlatIndex", "SearchResult"]

@@ -11,7 +11,8 @@ ones, so lock-free readers never see a mix of two generations.
 
 Search under ``topk_mode="bounded"`` (the default) runs the provably-
 exact norm-bounded scan (``ops.bounded_topk``) over a cached bf16 scan
-copy; small or odd-shaped corpora take the exact sort.
+copy, or with ``bounded_scan="int8"`` over cached per-window int8 codes
+of the stored rows; small or odd-shaped corpora take the exact sort.
 
 Speaks the same artifacts as the reference: FAISS flat files +
 metadata pickle (``load_faiss``/``save_faiss``) and the native
@@ -19,8 +20,8 @@ manifest + ``vectors.npy`` + ``metadata.json`` directory
 (``save_native``/``load_native``).
 
 Not ported yet (constructor raises): ``small_batch_accel`` (ROADMAP.md,
-Queue 1 slice 4), ``bounded_scan="int8"`` and the approx/verified/
-refined modes (slice 5), ``use_pallas``.
+Queue 1 slice 4), the approx/verified/refined modes (slice 5; the
+quantized index runs its own search), ``use_pallas``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from qrag_tpu_torch.device import resolve_device
 from qrag_tpu_torch.index import faiss_io
@@ -107,6 +107,10 @@ class SearchResult:
 class DeviceFlatIndex:
     """Exact flat index with the corpus resident in device memory."""
 
+    # topk modes this class searches with; a subclass that routes
+    # ``search_device`` itself (the quantized index) widens it
+    _topk_modes = ("exact", "bounded")
+
     def __init__(
         self,
         d: int,
@@ -133,15 +137,10 @@ class DeviceFlatIndex:
             )
         if store_dtype not in _DTYPES:
             raise ValueError(f"unknown store_dtype {store_dtype!r}")
-        if topk_mode in ("approx", "verified", "refined"):
+        if topk_mode not in self._topk_modes:
             raise NotImplementedError(
                 f"topk_mode {topk_mode!r} is not ported to qrag_tpu_torch "
                 "yet (ROADMAP.md, Queue 1 slice 5); use 'bounded' or 'exact'"
-            )
-        if bounded_scan == "int8":
-            raise NotImplementedError(
-                "bounded_scan='int8' is not ported yet (ROADMAP.md, Queue 1 "
-                "slice 5)"
             )
         if small_batch_accel != "none":
             raise NotImplementedError(
@@ -154,6 +153,7 @@ class DeviceFlatIndex:
                 "kernels run on every CUDA tensor (ROADMAP.md, Queue 2)"
             )
         self.device = resolve_device(device)
+        self.bounded_scan = bounded_scan
         # "store": round queries to the store dtype before the bounded
         # scan — exact w.r.t. the ROUNDED query
         self.bounded_query_dtype = bounded_query_dtype
@@ -280,11 +280,17 @@ class DeviceFlatIndex:
                 ntotal=n,
                 extras={},
             )
+        self._finalize_snapshot(snap)
         # single attribute store publishes the whole generation
         self._snapshot = snap
         self._dirty = False
         self._pending = []
         self._needs_full = False
+
+    def _finalize_snapshot(self, snap: DeviceBuffers) -> None:
+        """Hook for subclasses to attach derived buffers (quantized
+        forms) BEFORE the snapshot is published, so all forms of one
+        generation appear together."""
 
     def device_buffers(self) -> DeviceBuffers:
         """Atomic snapshot of all device-resident buffers for one corpus
@@ -320,20 +326,51 @@ class DeviceFlatIndex:
         the kernel — exact for dots; aliases a bf16 matrix that needs
         no padding), per-window max row norms, lane ranks."""
         from qrag_tpu_torch.ops.bounded_topk import window_maxnorms_device
-        from qrag_tpu_torch.ops.window_scan import make_lane_rank
+        from qrag_tpu_torch.ops.window_scan import make_lane_rank, pad_cols
 
         snap = self.device_buffers() if snap is None else snap
         bufs = snap.extras.get("bounded")
         if bufs is None:
-            scan = snap.matrix.to(torch.bfloat16)
-            if self.d % 16:
-                scan = F.pad(scan, (0, 16 - self.d % 16))
+            scan = pad_cols(snap.matrix.to(torch.bfloat16), _round_up(self.d, 16))
             bufs = (
                 scan.contiguous(),
                 window_maxnorms_device(snap.sqnorms),
                 make_lane_rank(snap.matrix.shape[0], snap.matrix.device),
             )
             snap.extras["bounded"] = bufs
+        return snap, bufs
+
+    def _bounded_buffers_int8(self, snap: Optional[DeviceBuffers] = None):
+        """Derived buffers for ``bounded_scan="int8"``, cached per
+        snapshot generation: per-window int8 codes of the stored
+        (refine-domain) rows, zero-padded to d % 16 == 0 for the kernel,
+        window scales, max row norms, min row sqnorms, exact
+        quantization-residual norms, lane ranks."""
+        from qrag_tpu_torch.ops.bounded_topk import (
+            window_maxnorms_device,
+            window_minsqnorms_device,
+            window_quant_residuals_device,
+        )
+        from qrag_tpu_torch.ops.window_scan import (
+            make_lane_rank,
+            pad_cols,
+            quantize_block_rows_device,
+        )
+
+        snap = self.device_buffers() if snap is None else snap
+        bufs = snap.extras.get("bounded_int8")
+        if bufs is None:
+            q8x, wscale = quantize_block_rows_device(snap.matrix)
+            q8x = pad_cols(q8x, _round_up(self.d, 16)).contiguous()
+            bufs = (
+                q8x,
+                wscale,
+                window_maxnorms_device(snap.sqnorms),
+                window_minsqnorms_device(snap.sqnorms),
+                window_quant_residuals_device(snap.matrix, q8x, wscale),
+                make_lane_rank(snap.matrix.shape[0], snap.matrix.device),
+            )
+            snap.extras["bounded_int8"] = bufs
         return snap, bufs
 
     def _bounded_eligible(self, k: int) -> bool:
@@ -347,10 +384,22 @@ class DeviceFlatIndex:
         """Provably-exact search via norm-bounded window pruning; the
         raw op output (goodness, idx, fell_back, n_patched, escalated)
         — callers finalize."""
-        from qrag_tpu_torch.ops.bounded_topk import bounded_exact_topk
+        from qrag_tpu_torch.ops.bounded_topk import (
+            bounded_exact_topk,
+            bounded_exact_topk_int8,
+        )
 
         if self.bounded_query_dtype == "store":
             queries = queries.to(self.store_dtype)
+        if self.bounded_scan == "int8":
+            snap, (q8x, wscale, mx, minsq, resid, lr) = (
+                self._bounded_buffers_int8()
+            )
+            return bounded_exact_topk_int8(
+                queries.to(torch.float32), q8x, wscale, snap.matrix,
+                snap.sqnorms, mx, minsq, resid, lr, k,
+                metric=self.metric, valid_rows=snap.valid,
+            )
         snap, (scan, mx, lr) = self._bounded_buffers()
         return bounded_exact_topk(
             queries, scan, snap.matrix, snap.sqnorms, mx, lr, k,

@@ -20,12 +20,15 @@ doc there derives the design.  In short:
 Result contract: the EXACT top-k (values, indices, ties to the lower
 global index) of the refine-domain scoring function.
 
+The int8 front end (``bounded_exact_topk_int8``) scans exact int32
+dots of per-window int8 codes and widens the margins to the
+quantization residual; it feeds the same tail.
+
 Where the JAX graph branches with ``lax.cond`` the port syncs ONE host
 scalar per tier and runs the next tier only if needed, so the full sort
 never runs on a batch that certified.  Window selection is an exact
 stable sort (the TPU used ``approx_max_k`` past 4096 windows); cert_a
-still counts coverage.  The int8 domain (``bounded_exact_topk_int8``)
-is not ported yet (ROADMAP.md, Queue 1 slice 5).
+still counts coverage.
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ import torch
 from qrag_tpu_torch.ops.topk import _goodness, top_k
 from qrag_tpu_torch.ops.window_scan import (
     _I32_MIN,
+    _INT_CLAMP,
     WINDOW,
     _float_from_key,
-    _float_sort_key,
+    _window_planes,
+    pad_cols,
 )
 
 # worst-case relative f32 accumulation-order drift between two
@@ -57,8 +62,6 @@ _SAFETY = 1.25
 # default: below it, expected window collisions (~k^2/2NW) stay well
 # under the whole-window patch budget F
 _LARGE_K_AUTO = 16
-# plain-twin query chunk: bounds the (chunk, N) f32 score temporaries
-_TWIN_ELEMS = 1 << 27
 
 
 def window_maxnorms(corpus_sqnorms: np.ndarray) -> np.ndarray:
@@ -76,6 +79,33 @@ def window_maxnorms_device(corpus_sqnorms: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(corpus_sqnorms.reshape(-1, WINDOW).amax(dim=1))
 
 
+def window_minsqnorms_device(corpus_sqnorms: torch.Tensor) -> torch.Tensor:
+    """(NW,) f32 MIN row sqnorm per window: the int8 mode's l2 bound
+    ranks windows by DOT, so the window's goodness upper bound assumes
+    its smallest-norm row."""
+    return corpus_sqnorms.reshape(-1, WINDOW).amin(dim=1)
+
+
+def window_quant_residuals_device(
+    corpus_f: torch.Tensor,  # (N, d) refine-domain rows
+    corpus_q8: torch.Tensor,  # (N, d_scan) int8 codes quantized FROM corpus_f
+    window_scales: torch.Tensor,  # (NW,) f32
+) -> torch.Tensor:
+    """(NW,) f32: max over each window of the EXACT quantization
+    residual L2 norm |x_r - s_w * x8_r|_2 (rigorous in Cauchy-Schwarz
+    and ~1.7x tighter than the sqrt(d)/2 * s_w worst case).  Code
+    columns past d are zero padding."""
+    d = corpus_f.shape[1]
+    scales_per_row = window_scales.repeat_interleave(WINDOW)[:, None]
+    resid = (
+        corpus_f.to(torch.float32)
+        - corpus_q8[:, :d].to(torch.float32) * scales_per_row
+    )
+    rn = torch.sqrt(torch.sum(resid * resid, dim=1))
+    # (1 + 1e-5) + floor absorbs the f32 rounding of the norm itself
+    return rn.reshape(-1, WINDOW).amax(dim=1) * (1.0 + 1e-5) + 1e-20
+
+
 def margin_coeff(query_dtype, scan_dtype, exact_dtype, d: int) -> float:
     """Rigorous relative error coefficient between the scan evaluation
     and the refine evaluation of one dot product (module doc)."""
@@ -84,34 +114,6 @@ def margin_coeff(query_dtype, scan_dtype, exact_dtype, d: int) -> float:
     cross = 2.0 ** -16 if (q_round or x_round) else 0.0
     acc = max(d, 768) / 768.0 * _EPS_ACC
     return (q_round + x_round + cross + acc) * _SAFETY
-
-
-def _packed_planes(queries, corpus, lane_rank, row_add, col_add, alpha, planes):
-    """Plain twin of the scan kernel: ``planes`` successive masked
-    window maxes of the packed keys.  Affine terms are added in the
-    XLA twin's order, ``(alpha*g + row_add) + col_add``, so CPU planes
-    match the JAX reference bit for bit where the products agree."""
-    b, n = queries.shape[0], corpus.shape[0]
-    nw = n // WINDOW
-    x32 = corpus.to(torch.float32)
-    chunk = max(1, _TWIN_ELEMS // max(n, 1))
-    outs = [[] for _ in range(planes)]
-    for s in range(0, b, chunk):
-        g = queries[s : s + chunk].to(torch.float32) @ x32.T
-        if alpha != 1.0:
-            g = g * alpha
-        if row_add is not None:
-            g = g + row_add
-        if col_add is not None:
-            g = g + col_add[s : s + chunk]
-        key = _float_sort_key(g) & ~127
-        packed = (key | lane_rank).reshape(g.shape[0], nw, WINDOW)
-        for p in range(planes):
-            pk = packed.amax(dim=2)
-            outs[p].append(pk)
-            if p + 1 < planes:
-                packed = torch.where(packed == pk[:, :, None], _I32_MIN, packed)
-    return tuple(torch.cat(o, dim=0) for o in outs)
 
 
 def packed_window_scan_top2(
@@ -124,7 +126,7 @@ def packed_window_scan_top2(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain top-2 window scan: (pk1, pk2) (B, NW) int32 packed planes
     — the window argmax key and the runner-up key."""
-    return _packed_planes(queries, corpus, lane_rank, row_add, col_add, alpha, 2)
+    return _window_planes(queries, corpus, lane_rank, row_add, col_add, alpha, 2)
 
 
 def packed_window_scan_top3(
@@ -137,7 +139,7 @@ def packed_window_scan_top3(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain top-3 window scan: ``packed_window_scan_top2`` plus the
     third-best plane (the large-k design's third-row bound)."""
-    return _packed_planes(queries, corpus, lane_rank, row_add, col_add, alpha, 3)
+    return _window_planes(queries, corpus, lane_rank, row_add, col_add, alpha, 3)
 
 
 def plane_value_bounds(pk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -304,9 +306,7 @@ def window_bounds_bf16(
         bias = torch.where(valid_rows, 0.0, -torch.inf)[None, :]
         row_add = bias if row_add is None else row_add + bias
 
-    q_scan = queries.to(corpus_scan.dtype)
-    if corpus_scan.shape[1] != d:
-        q_scan = torch.nn.functional.pad(q_scan, (0, corpus_scan.shape[1] - d))
+    q_scan = pad_cols(queries.to(corpus_scan.dtype), corpus_scan.shape[1])
     pks = packed_window_scan(
         q_scan.contiguous(), corpus_scan, lane_rank,
         row_add=row_add, col_add=col_add, alpha=alpha,
@@ -352,6 +352,7 @@ def _certify_and_refine(
     ub2: torch.Tensor,  # (B, NW) bound for any NON-ARGMAX row
     cand_live: torch.Tensor,  # (B, NW) bool
     lane1: torch.Tensor,  # (B, NW) argmax lane
+    extra_fail: Optional[torch.Tensor] = None,  # front-end soundness failure
     do_fallback: bool = True,
     ub3: Optional[torch.Tensor] = None,  # (B, NW) bound for rows 3..W
     lane2: Optional[torch.Tensor] = None,  # (B, NW) runner-up lane
@@ -471,6 +472,8 @@ def _certify_and_refine(
 
     n_patched = p_live.sum()
     fell_back = cert_a_fail | cert_r_fail | cert_b_fail
+    if extra_fail is not None:
+        fell_back = fell_back | extra_fail
 
     parts_g, parts_i = [cand_g, extras_g], [cand_idx, extras_idx]
     if runner_g is not None:
@@ -507,18 +510,20 @@ def _exact_full_sort(
 
 def _certify_escalate(
     q32, qsq, corpus_f, corpus_sqnorms, k, metric, valid_rows, C, F,
-    *, ub, ub2, cand_live, lane1,
+    *, ub, ub2, cand_live, lane1, extra_fail=None,
     ub3=None, lane2=None, live2=None, runner_budget=8, patch_windows=2,
 ):
     """Escalating-budget certification: try C, then 4C on the SAME
     planes, then the exact full sort.  Each tier ends in one host
-    scalar sync that decides whether the next one runs.  Returns the
-    5-tuple of ``bounded_exact_topk``."""
+    scalar sync that decides whether the next one runs.  ``extra_fail``
+    (a 0-dim bool tensor, e.g. int8 key clipping) voids the BOUNDS: no
+    budget can fix that, so it routes straight to the full sort with no
+    escalation.  Returns the 5-tuple of ``bounded_exact_topk``."""
     b = q32.shape[0]
     nw = ub.shape[1]
     common = dict(
         ub=ub, ub2=ub2, cand_live=cand_live, lane1=lane1,
-        ub3=ub3, lane2=lane2, live2=live2,
+        extra_fail=extra_fail, ub3=ub3, lane2=lane2, live2=live2,
     )
     C2 = min(4 * C, nw)
     F2 = min(4 * F, b)
@@ -540,10 +545,171 @@ def _certify_escalate(
         C, F, do_fallback=False, runner_budget=runner_budget,
         patch_windows=patch_windows, **common,
     )
-    if not bool(fb1):
+    if extra_fail is None:
+        fb1, void = bool(fb1), False
+    else:
+        fb1, void = torch.stack([fb1, extra_fail]).tolist()
+    if not fb1:
         return vals, idx, False, npatch, False
+    if void:
+        vals, idx = _exact_full_sort(
+            q32, corpus_f, corpus_sqnorms, k, metric, valid_rows
+        )
+        return vals, idx, True, npatch, False
     vals, idx, fb, npatch = _certify_and_refine(
         q32, qsq, corpus_f, corpus_sqnorms, k, metric, valid_rows,
         C2, F2, runner_budget=R2, patch_windows=P2, **common,
     )
     return vals, idx, bool(fb), npatch, True
+
+
+def packed_window_scan_top2_int(
+    q8: torch.Tensor,  # (B, d) int8
+    corpus_q8: torch.Tensor,  # (N, d) int8; N % 128 == 0
+    lane_rank: torch.Tensor,  # (1, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain int top-2 window scan: packed keys carry the RAW int32
+    dots (exact) clamped to 24 bits and shifted by 7 for the lane bits.
+    Twin of the kernel's int8 arm with planes=2."""
+    return _window_planes(q8, corpus_q8, lane_rank, None, None, 1.0, 2)
+
+
+def bounded_exact_topk_int8(
+    queries: torch.Tensor,  # (B, d) f32 true queries
+    corpus_q8: torch.Tensor,  # (N, d_scan) int8 per-window codes; N % 128 == 0
+    window_scales: torch.Tensor,  # (NW,) f32 s_w (from quantize_block_rows*)
+    corpus_f: torch.Tensor,  # (N, d) refine-domain rows THE CODES CAME FROM
+    corpus_sqnorms: torch.Tensor,  # (N,) f32 refine-domain row sqnorms
+    maxnorms: torch.Tensor,  # (NW,) f32 max row L2 per window
+    minsqnorms: torch.Tensor,  # (NW,) f32 min row sqnorm per window
+    window_resid: torch.Tensor,  # (NW,) f32 max |x - s*x8|_2 per window
+    lane_rank: torch.Tensor,  # (1, N)
+    k: int,
+    metric: str = "l2",
+    valid_rows: Optional[torch.Tensor] = None,  # (N,) bool
+    candidates: int = 48,
+    patch_queries: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor, bool, torch.Tensor, bool]:
+    """Provably-exact top-k with the scan on exact int32 dots of
+    per-window int8 codes (``window_bounds_int8``).  There is no scan
+    rounding: the margin covers the QUANTIZATION residual.  Clipped
+    keys void the bounds and force the exact full sort.  Same 5-tuple
+    and refine-domain contract (``corpus_f`` in f32) as
+    ``bounded_exact_topk``."""
+    b = queries.shape[0]
+    nw = corpus_q8.shape[0] // WINDOW
+    if nw < k:
+        raise ValueError(
+            f"bounded top-k needs >= k windows (k={k}, windows={nw}) — "
+            "route small corpora to the exact sort"
+        )
+    C = min(max(candidates, k), nw)
+    F = min(patch_queries, b)
+    q32, qsq, ub, ub2, cand_live, lane1, clip_fail = window_bounds_int8(
+        queries, corpus_q8, window_scales, corpus_f, corpus_sqnorms,
+        maxnorms, minsqnorms, window_resid, lane_rank, metric=metric,
+        valid_rows=valid_rows,
+    )
+    return _certify_escalate(
+        q32, qsq, corpus_f, corpus_sqnorms, k, metric, valid_rows, C, F,
+        ub=ub, ub2=ub2, cand_live=cand_live, lane1=lane1,
+        extra_fail=clip_fail,
+    )
+
+
+def window_bounds_int8(
+    queries: torch.Tensor,  # (B, d) f32
+    corpus_q8: torch.Tensor,  # (N, d_scan) int8
+    window_scales: torch.Tensor,  # (NW,) f32
+    corpus_f: torch.Tensor,  # (N, d) refine-domain rows
+    corpus_sqnorms: torch.Tensor,  # (N,)
+    maxnorms: torch.Tensor,  # (NW,)
+    minsqnorms: torch.Tensor,  # (NW,)
+    window_resid: torch.Tensor,  # (NW,)
+    lane_rank: torch.Tensor,  # (1, N)
+    metric: str = "l2",
+    valid_rows: Optional[torch.Tensor] = None,
+):
+    """Int8-scan front end: exact int32 window dots + quantization-
+    residual margins.  Returns (q32, qsq, ub, ub2, cand_live, lane1,
+    clip_fail) — the certificate inputs of ``_certify_escalate``.
+
+    With q = t*q8 + eq and x = s_w*x8 + ex, every row r of window w
+    satisfies |q.x_r - t*s_w*dot_int| <= (|q|+rq)*rx_w +
+    (maxnorm_w+rx_w)*rq =: E[b, w], with the exact residual norms rq
+    (computed here) and rx_w (``window_quant_residuals_device``)."""
+    from qrag_tpu_torch.ops.cuda.fused_scan import packed_window_scan
+    from qrag_tpu_torch.ops.quantize import quantize_rows
+
+    b, d = queries.shape
+    nw = corpus_q8.shape[0] // WINDOW
+    q32 = queries.to(torch.float32)
+    qsq = torch.sum(q32 * q32, dim=-1, keepdim=True)
+    qnorm = torch.sqrt(qsq)[:, 0]  # (B,)
+    # per-query symmetric int8 (the per-window corpus scheme)
+    q8, t = quantize_rows(q32)
+
+    pk1, pk2 = packed_window_scan(
+        pad_cols(q8, corpus_q8.shape[1]).contiguous(), corpus_q8, lane_rank,
+        planes=2,
+    )
+    dot1 = pk1 >> 7  # EXACT int dot of each window's argmax row
+    lane1 = WINDOW - 1 - (pk1 & (WINDOW - 1))
+    pk2_masked = pk2 == _I32_MIN
+    dot2 = pk2 >> 7
+    # a clipped key voids the upper bound: force the exact fallback
+    clip_fail = torch.any(torch.abs(dot1) >= _INT_CLAMP) | torch.any(
+        torch.where(pk2_masked, 0, torch.abs(dot2)) >= _INT_CLAMP
+    )
+
+    scale_bw = t[:, None] * window_scales[None, :]  # (B, NW)
+    s1 = scale_bw * dot1.to(torch.float32)
+    s2 = scale_bw * dot2.to(torch.float32)
+    q_deq = q8.to(torch.float32) * t[:, None]
+    rq = (
+        torch.sqrt(torch.sum((q32 - q_deq) ** 2, dim=1)) * (1.0 + 1e-5)
+        + 1e-20
+    )  # (B,)
+    rx = window_resid  # (NW,)
+    E = (
+        (qnorm + rq)[:, None] * rx[None, :]
+        + (maxnorms + rx)[None, :] * rq[:, None]
+    )
+    # _SAFETY absorbs the f32 rounding of computing E/s1 themselves;
+    # the margin_coeff term covers the refine evaluation's own f32
+    # accumulation-order drift; 2e-7|s1| the two scaling multiplies
+    E = (
+        _SAFETY * E
+        + margin_coeff(torch.float32, torch.float32, torch.float32, d)
+        * qnorm[:, None]
+        * maxnorms[None, :]
+        + 2e-7 * torch.abs(s1)
+        + 1e-30
+    )
+
+    neg_inf = torch.tensor(-torch.inf, device=q32.device)
+    if metric == "l2":
+        extra = 5e-7 * (qsq + maxnorms[None, :] ** 2)
+        ub = 2.0 * (s1 + E) - qsq - minsqnorms[None, :] + extra
+        ub2 = torch.where(
+            pk2_masked, neg_inf,
+            2.0 * (s2 + E) - qsq - minsqnorms[None, :] + extra,
+        )
+    elif metric == "ip":
+        ub = s1 + E
+        ub2 = torch.where(pk2_masked, neg_inf, s2 + E)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+
+    cand_live = torch.ones((b, nw), dtype=torch.bool, device=q32.device)
+    if valid_rows is not None:
+        # windows with no valid row must not qualify (their zero-padding
+        # codes carry dot 0, which can beat real negative scores);
+        # partially-valid windows stay live — an invalid argmax row is
+        # dropped at the candidate level, a valid runner-up is covered
+        # by ub2/patching
+        wvalid = valid_rows.reshape(nw, WINDOW).any(dim=1)[None, :]
+        ub = torch.where(wvalid, ub, neg_inf)
+        ub2 = torch.where(wvalid, ub2, neg_inf)
+        cand_live = wvalid.expand(b, nw)
+    return q32, qsq, ub, ub2, cand_live, lane1, clip_fail

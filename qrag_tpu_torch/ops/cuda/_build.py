@@ -48,52 +48,63 @@ def _nvcc() -> str:
     )
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives."""
+def library_path(csrc: Path = CSRC, build_root: Path = BUILD_ROOT) -> Path:
+    """Where the library for the sources of ``csrc`` lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    return build_root / h.hexdigest()[:16] / LIB_NAME
+
+
+def build_library(csrc: Path = CSRC, build_root: Path = BUILD_ROOT):
+    """Compile the ``*.cu`` of ``csrc`` unless its library exists;
+    returns (path, nvcc output or None)."""
+    path = library_path(csrc, build_root)
+    if path.exists():
+        return path, None
+    path.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a temporary name and rename: a concurrent process
+    # never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+    os.close(fd)
+    cu = [str(s) for s in _sources(csrc) if s.suffix == ".cu"]
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, proc.stdout + proc.stderr
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.qrag_packed_window_scan
+    fn.argtypes = [P, P, P, P, I, I, I, ctypes.c_float, I, P, P, P, P]
+    fn.restype = I
+    # an older build (scan_ab's other side) may predate the int8 arm
+    if hasattr(lib, "qrag_packed_window_scan_int8"):
+        fn8 = lib.qrag_packed_window_scan_int8
+        fn8.argtypes = [P, P, I, I, I, I, P, P, P]
+        fn8.restype = I
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernels' library."""
     global _lib, build_log
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        if not path.exists():
-            path.parent.mkdir(parents=True, exist_ok=True)
-            # compile to a temporary name and rename: a concurrent
-            # process never loads a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-            os.close(fd)
-            cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            os.replace(tmp, path)
-            build_log = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(str(path))
-        fn = lib.qrag_packed_window_scan
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            path, log = build_library()
+            if log is not None:
+                build_log = log
+            _lib = bind(path)
+        return _lib

@@ -1,13 +1,21 @@
 """Packed window scan: the Hopper kernel and its dispatch.
 
-``packed_window_scan`` is the one entry point of the bounded-exact
-scan (``ops.bounded_topk.window_bounds_bf16``).  A CUDA tensor launches
-the CUDA C++ kernel of ``csrc/fused_scan.cu`` (which replaces the
-Pallas kernels ``_packed_top2_t_kernel`` and ``_packed_top2_kernel`` of
-``qrag_tpu/ops/pallas/fused_scan.py``) or raises; a CPU tensor runs the
-plain PyTorch twins ``bounded_topk.packed_window_scan_top2/top3``.
+``packed_window_scan`` is the one entry point of every windowed scan of
+the port: the bounded-exact fronts (``bounded_topk.window_bounds_bf16``
+and ``window_bounds_int8``, ``int8_domain.exact_topk_int8_domain``) and
+``window_scan.windowed_scan_topk``.  A CUDA tensor launches the CUDA C++
+kernel of ``csrc/fused_scan.cu`` (which replaces the Pallas kernels
+``_packed_top2_t_kernel``, ``_packed_top2_kernel``, ``_packed_kernel``
+and ``_packed_t_kernel`` of ``qrag_tpu/ops/pallas/fused_scan.py``) or
+raises; a CPU tensor runs the plain PyTorch twins
+(``window_scan.packed_window_scan`` for planes=1,
+``bounded_topk.packed_window_scan_top2/top3/top2_int`` otherwise).
 
-``launches`` counts kernel launches per plane count, so a run can
+Domains: bf16 queries and corpus (the float domain, planes 1-3, with
+the affine terms ``alpha``, ``row_add`` and ``col_add``) or int8 codes
+(planes 1-2, raw int32 dots, no affine terms).
+
+``launches`` counts kernel launches per (domain, planes), so a run can
 show that its main path went through the kernel.
 """
 
@@ -20,47 +28,67 @@ import torch
 
 from qrag_tpu_torch.ops.window_scan import WINDOW
 
-launches = {2: 0, 3: 0}
+launches = {
+    ("bf16", 1): 0, ("bf16", 2): 0, ("bf16", 3): 0,
+    ("int8", 1): 0, ("int8", 2): 0,
+}
 _launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        for p in launches:
-            launches[p] = 0
+        for key in launches:
+            launches[key] = 0
 
 
 def packed_window_scan(
     queries: torch.Tensor,  # (B, d) scan dtype
     corpus: torch.Tensor,  # (N, d) scan dtype; N % 128 == 0
-    lane_rank: torch.Tensor,  # (1, N) int32 (plain twin only)
-    row_add: Optional[torch.Tensor] = None,  # (1, N) f32
-    col_add: Optional[torch.Tensor] = None,  # (B, 1) f32
+    lane_rank: Optional[torch.Tensor],  # (1, N) int32 (plain twins only)
+    row_add: Optional[torch.Tensor] = None,  # (1, N) f32 (float domain)
+    col_add: Optional[torch.Tensor] = None,  # (B, 1) f32 (float domain)
     alpha: float = 1.0,
     planes: int = 2,
 ) -> Tuple[torch.Tensor, ...]:
-    """``planes`` (B, N/128) int32 packed planes (top-1, top-2[, top-3]
-    keys per window) of ``alpha * Q X^T + col_add + row_add``."""
-    if planes not in (2, 3):
-        raise ValueError(f"planes must be 2 or 3, got {planes}")
-    if queries.dtype == torch.int8 or corpus.dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 domain of the packed window scan is not ported yet "
-            "(ROADMAP.md, Queue 2 K1 int8 arm)"
+    """``planes`` (B, N/128) int32 packed planes (top-1[, top-2[,
+    top-3]] keys per window) of ``alpha * Q X^T + col_add + row_add``
+    (float) or of the clamped raw int32 dots (int8)."""
+    int_domain = corpus.dtype == torch.int8
+    if (queries.dtype == torch.int8) != int_domain:
+        raise TypeError(
+            f"packed_window_scan: queries {queries.dtype} vs corpus "
+            f"{corpus.dtype}; both int8 or neither"
         )
+    if planes not in ((1, 2) if int_domain else (1, 2, 3)):
+        raise ValueError(
+            f"planes must be in {{1, 2}} (int8) or {{1, 2, 3}} (float), "
+            f"got {planes}"
+        )
+    if int_domain and (row_add is not None or col_add is not None or alpha != 1.0):
+        raise ValueError("int domain packs raw dots; no affine terms")
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
-        from qrag_tpu_torch.ops import bounded_topk
+        from qrag_tpu_torch.ops import bounded_topk, window_scan
 
+        if planes == 1:
+            return (
+                window_scan.packed_window_scan(
+                    queries, corpus, lane_rank, row_add, col_add, alpha
+                ),
+            )
+        if int_domain:
+            return bounded_topk.packed_window_scan_top2_int(
+                queries, corpus, lane_rank
+            )
         twin = (
             bounded_topk.packed_window_scan_top3
             if planes == 3
             else bounded_topk.packed_window_scan_top2
         )
         return twin(queries, corpus, lane_rank, row_add, col_add, alpha)
-    return _launch(queries, corpus, row_add, col_add, alpha, planes)
+    return _launch(queries, corpus, row_add, col_add, alpha, planes, int_domain)
 
 
-def _launch(queries, corpus, row_add, col_add, alpha, planes):
+def _launch(queries, corpus, row_add, col_add, alpha, planes, int_domain):
     b, d = queries.shape
     n = corpus.shape[0]
     dev = corpus.device
@@ -69,10 +97,11 @@ def _launch(queries, corpus, row_add, col_add, alpha, planes):
             f"packed_window_scan: queries on {queries.device}, corpus on "
             f"{dev}; the kernel needs both on one CUDA device"
         )
-    if queries.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
+    dtype = torch.int8 if int_domain else torch.bfloat16
+    if queries.dtype != dtype or corpus.dtype != dtype:
         raise TypeError(
-            "packed_window_scan kernel takes bf16 queries and corpus, got "
-            f"{queries.dtype} and {corpus.dtype}"
+            "packed_window_scan kernel takes bf16 or int8 queries and "
+            f"corpus, got {queries.dtype} and {corpus.dtype}"
         )
     if corpus.ndim != 2 or corpus.shape[1] != d:
         raise ValueError(f"corpus {tuple(corpus.shape)} vs queries {(b, d)}")
@@ -85,8 +114,6 @@ def _launch(queries, corpus, row_add, col_add, alpha, planes):
         raise ValueError("packed_window_scan kernel needs contiguous inputs")
     if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
         raise ValueError("packed_window_scan kernel needs 16-byte aligned rows")
-    ra = _affine(row_add, n, dev, "row_add")
-    ca = _affine(col_add, b, dev, "col_add")
     nw = n // WINDOW
     outs = [
         torch.empty((b, nw), dtype=torch.int32, device=dev)
@@ -94,19 +121,27 @@ def _launch(queries, corpus, row_add, col_add, alpha, planes):
     ]
     from qrag_tpu_torch.ops.cuda._build import load_library
 
-    fn = load_library().qrag_packed_window_scan
+    lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            queries.data_ptr(), corpus.data_ptr(), ra.data_ptr(),
-            ca.data_ptr(), b, nw, d, float(alpha), planes,
-            outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[-1].data_ptr(), stream,
-        )
+        if int_domain:
+            err = lib.qrag_packed_window_scan_int8(
+                queries.data_ptr(), corpus.data_ptr(), b, nw, d, planes,
+                outs[0].data_ptr(), outs[-1].data_ptr(), stream,
+            )
+        else:
+            ra = _affine(row_add, n, dev, "row_add")
+            ca = _affine(col_add, b, dev, "col_add")
+            err = lib.qrag_packed_window_scan(
+                queries.data_ptr(), corpus.data_ptr(), ra.data_ptr(),
+                ca.data_ptr(), b, nw, d, float(alpha), planes,
+                outs[0].data_ptr(), outs[min(1, planes - 1)].data_ptr(),
+                outs[-1].data_ptr(), stream,
+            )
     if err != 0:
         raise RuntimeError(f"packed_window_scan kernel launch failed: cudaError {err}")
     with _launch_lock:
-        launches[planes] += 1
+        launches[("int8" if int_domain else "bf16", planes)] += 1
     return tuple(outs)
 
 

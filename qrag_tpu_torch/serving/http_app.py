@@ -16,8 +16,9 @@ Handler-level failures return ``{"error": str}`` with HTTP 200 (the
 reference's behavior), 400/404 for protocol problems.  ``POST /rerank``
 answers 501: the document-list rerank is not ported yet (ROADMAP.md,
 Queue 1 slice 2), and neither are ``--batching``, ``--sharded`` and
-``--elastic``.  Requests run on the handler threads, each launching
-the kernels on its own current CUDA stream.
+``--elastic``.  ``--bounded-scan int8`` and ``--lean-scan`` select the
+int8 retrieval modes.  Requests run on the handler threads, each
+launching the kernels on its own current CUDA stream.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from qrag_tpu.config import QragConfig
-from qrag_tpu.utils.logging_util import configure_logging
+from qrag_tpu_torch.config import QragConfig
 from qrag_tpu_torch.engine import QragEngine, _index_cls_and_kwargs
+from qrag_tpu_torch.pipeline.embeddings import get_embedder
+from qrag_tpu_torch.utils.logging_util import configure_logging
 
 logger = logging.getLogger(__name__)
 
@@ -228,7 +230,7 @@ def create_server(
     return ThreadingHTTPServer((host, port), _make_handler(engine))
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="qrag_tpu_torch HTTP server")
     parser.add_argument("--host", default=None)
     parser.add_argument("--port", type=int, default=None)
@@ -244,25 +246,78 @@ def main(argv=None) -> None:
         help="top-k selection mode: 'bounded' = provably-exact "
         "norm-bounded window pruning (ops/bounded_topk.py)",
     )
+    parser.add_argument(
+        "--bounded-scan",
+        default=None,
+        choices=["bf16", "int8"],
+        help="with --topk-mode bounded: scan arithmetic — 'int8' scans "
+        "exact int32 dots of per-window int8 codes, with margins "
+        "covering the quantization residual (still provably exact)",
+    )
+    parser.add_argument(
+        "--bounded-query-dtype",
+        default=None,
+        choices=["float32", "store"],
+        help="with --topk-mode bounded: 'store' rounds queries to the "
+        "store dtype first — exact w.r.t. the ROUNDED query; default "
+        "float32 = exact w.r.t. the query as given",
+    )
+    parser.add_argument(
+        "--lean-scan",
+        action="store_true",
+        help="memory-lean serving: int8 windowed packed scan with "
+        "gather-free scoring (quantization=int8, quant_scan=window, "
+        "exact_scores=False) — the (B, N) score matrix never exists "
+        "and candidate rows are never gathered; returned scores are "
+        "approximate (block-int8, ~1%%)",
+    )
     parser.add_argument("--no-warmup", action="store_true")
     for flag in ("--batching", "--sharded", "--elastic"):
         parser.add_argument(flag, action="store_true", help=f"{_NOT_PORTED}")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def _configure(parser: argparse.ArgumentParser, args) -> QragConfig:
+    """The config the flags select (env overrides first), after the
+    reference's argument checks; each index choice is also written to
+    the env channel, which engine bundles re-read (``QragEngine.load``)."""
     for flag in ("batching", "sharded", "elastic"):
         if getattr(args, flag):
             parser.error(f"--{flag} is {_NOT_PORTED}")
-
-    configure_logging()
     config = QragConfig().with_env_overrides()
-    if args.topk_mode:
-        config = replace(config, index=replace(config.index, topk_mode=args.topk_mode))
-        # engine bundles re-read env overrides (QragEngine.load)
-        os.environ["QRAG_INDEX_TOPK_MODE"] = args.topk_mode
+    if args.topk_mode and args.lean_scan:
+        parser.error("--lean-scan fixes its own scan mode")
+    topk_mode = args.topk_mode or config.index.topk_mode
+    if args.bounded_scan and topk_mode != "bounded":
+        parser.error("--bounded-scan requires --topk-mode bounded")
+    if args.bounded_query_dtype and topk_mode != "bounded":
+        parser.error("--bounded-query-dtype requires --topk-mode bounded")
+    index_over = {
+        "topk_mode": args.topk_mode,
+        "bounded_scan": args.bounded_scan,
+        "bounded_query_dtype": args.bounded_query_dtype,
+    }
+    if args.lean_scan:
+        index_over.update(quantization="int8", quant_scan="window", exact_scores=False)
+    for name, value in index_over.items():
+        if value is None:
+            continue
+        config = replace(config, index=replace(config.index, **{name: value}))
+        env = "0" if value is False else str(value)
+        os.environ[f"QRAG_INDEX_{name.upper()}"] = env
     if args.embedding_provider:
         config = replace(
             config,
             embedding=replace(config.embedding, provider=args.embedding_provider),
         )
+    return config
+
+
+def main(argv=None) -> None:
+    parser = _parser()
+    args = parser.parse_args(argv)
+    config = _configure(parser, args)
+    configure_logging()
     host = args.host or config.serving.host
     port = args.port if args.port is not None else config.serving.port
 
@@ -270,8 +325,6 @@ def main(argv=None) -> None:
         if os.path.exists(os.path.join(args.index, "engine.json")):
             engine = QragEngine.load(args.index, device=args.device)
             if args.embedding_provider:
-                from qrag_tpu.pipeline.embeddings import get_embedder
-
                 engine.embedder = get_embedder(
                     replace(engine.config.embedding, provider=args.embedding_provider)
                 )

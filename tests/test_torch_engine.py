@@ -96,10 +96,16 @@ def test_unported_paths_raise(engines):
     for call in (te.rerank, te.search_rerank_pipelined):
         with pytest.raises(NotImplementedError):
             call("q", [])
-    for over in ({"index": {"sharded": True}}, {"index": {"quantization": "int8"}},
+    for over in ({"index": {"sharded": True}},
                  {"embedding": {"provider": "trained", "dim": 8}}):
         with pytest.raises(NotImplementedError):
             TEngine(config=QragConfig.from_dict(over), device="cpu")
+    quant = TEngine(config=QragConfig.from_dict(
+        {"index": {"quantization": "int8"}, "embedding": {"provider": "hash", "dim": D}}
+    ), device="cpu")
+    quant.index.add(_queries(7, 64))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quant.search_rerank(_queries(7, 1))  # the fused rerank over int8 codes
 
 
 def test_stats_warmup_and_add(bundle):
@@ -176,12 +182,58 @@ def test_server_flags_not_ported():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    interpreter: neither jax nor anything of the JAX package loads."""
     code = (
-        "import sys\n"
-        "import qrag_tpu_torch, qrag_tpu_torch.engine, qrag_tpu_torch.serving\n"
-        "import qrag_tpu_torch.ops.cuda.fused_scan, qrag_tpu_torch.index\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "import pkgutil, sys\n"
+        "import qrag_tpu_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    qrag_tpu_torch.__path__, 'qrag_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    __import__(name)\n"
+        "assert len(names) >= 20, names\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'qrag_tpu' or m.startswith('qrag_tpu.')]\n"
+        "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root, env=env)
+
+
+def test_framework_free_copies_match_reference():
+    """The port's own copies of config, embeddings, chunker and metrics
+    behave as the reference modules do."""
+    from qrag_tpu import config as jconfig
+    from qrag_tpu.pipeline import chunker as jchunk
+    from qrag_tpu.pipeline import embeddings as jemb
+    from qrag_tpu_torch import config as tconfig
+    from qrag_tpu_torch.pipeline import chunker as tchunk
+    from qrag_tpu_torch.pipeline import embeddings as temb
+    from qrag_tpu_torch.utils.metrics import Metrics
+
+    over = {"index": {"quantization": "int8", "quant_scan": "window",
+                      "refine_factor": 6}, "serving": {"doc_buckets": [4, 8]},
+            "embedding": {"provider": "hash", "dim": 96}, "unknown": {"x": 1}}
+    env = {"QRAG_INDEX_EXACT_SCORES": "0", "QRAG_SERVING_PORT": "9100",
+           "QRAG_QUANTUM_N_QUBITS": "6", "QRAG_SERVING_WARMUP_BATCH_BUCKETS": "1,4",
+           "QRAG_CONTROLLER_QUANTUM_KEYWORDS": "ad, promo"}
+    for d in (None, {}, over):
+        tj = jconfig.QragConfig.from_dict(d).with_env_overrides(env)
+        tt = tconfig.QragConfig.from_dict(d).with_env_overrides(env)
+        assert tt.to_dict() == tj.to_dict()
+    texts = ["find the advertisement", "", "a sponsor read " * 40]
+    for provider, dim in (("hash", 64), ("mock", 8), ("mock", 0)):
+        ej = jemb.get_embedder(jconfig.EmbeddingConfig(provider=provider, dim=dim))
+        et = temb.get_embedder(tconfig.EmbeddingConfig(provider=provider, dim=dim))
+        np.testing.assert_array_equal(et(texts), ej(texts))
+    long = ("word. " * 3000) + ("x" * 9000) + ("line\n" * 2000)
+    for max_tokens in (100, 1000, 8000):
+        assert tchunk.chunk_text(long, max_tokens) == jchunk.chunk_text(long, max_tokens)
+    with pytest.raises(NotImplementedError):
+        temb.get_embedder(tconfig.EmbeddingConfig(provider="trained"))
+    m = Metrics()
+    with m.timer("search"):
+        m.incr("requests", 2)
+    snap = m.snapshot()
+    assert snap["counters"] == {"requests": 2} and snap["latency"]["search"]["count"] == 1

@@ -1,5 +1,6 @@
-"""GPU-only checks of the Hopper packed window-scan kernel against its
-plain twin (marked ``gpu``; they skip without a CUDA device).  This file
+"""GPU-only checks of the Hopper packed window-scan kernel (float and
+int8 arms) against its plain twins (marked ``gpu``; they skip without a
+CUDA device).  This file
 imports no jax, so it runs on the GPU host, which has none:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -54,3 +55,63 @@ def test_gpu_kernel_rejects_bad_inputs(cuda):
         fused_scan.packed_window_scan(x[:2, :24].contiguous(), x[:, :24].contiguous(), None)
     with pytest.raises(ValueError):
         fused_scan.packed_window_scan(x[:2].cpu(), x, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 4224, 16), (7, 4096, 128), (64, 4224, 768)])
+def test_gpu_int8_kernel_bit_equal(cuda, planes, shape):
+    """Integer accumulation is exact: the int planes equal the twin's bit
+    for bit on random codes."""
+    from qrag_tpu_torch.ops import bounded_topk as tbt
+    from qrag_tpu_torch.ops import window_scan as tws
+    from qrag_tpu_torch.ops.cuda import fused_scan
+
+    b, n, d = shape
+    rng = np.random.default_rng(b + d)
+    q = torch.from_numpy(rng.integers(-127, 128, (b, d)).astype(np.int8)).to(cuda)
+    x = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(cuda)
+    got = fused_scan.packed_window_scan(q, x, None, planes=planes)
+    torch.cuda.synchronize()
+    lr = tws.make_lane_rank(n, cuda)
+    ref = (
+        (tws.packed_window_scan(q, x, lr),)
+        if planes == 1
+        else tbt.packed_window_scan_top2_int(q, x, lr)
+    )
+    assert len(got) == planes
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsize", [1, 7, 64])
+def test_gpu_float_top1_kernel_matches_twin(cuda, bsize):
+    from qrag_tpu_torch.ops import window_scan as tws
+    from qrag_tpu_torch.ops.cuda import fused_scan
+
+    rng = np.random.default_rng(bsize)
+    n, d = 4224, 128
+    q = torch.from_numpy(rng.integers(-8, 9, (bsize, d)).astype(np.float32) / 16)
+    x = torch.from_numpy(rng.integers(-8, 9, (n, d)).astype(np.float32) / 16)
+    q, x = q.to(cuda).bfloat16(), x.to(cuda).bfloat16()
+    ra = -(x.float() ** 2).sum(1)[None, :]
+    ca = -(q.float() ** 2).sum(1, keepdim=True)
+    (got,) = fused_scan.packed_window_scan(q, x, None, ra, ca, 2.0, planes=1)
+    torch.cuda.synchronize()
+    ref = tws.packed_window_scan(q, x, tws.make_lane_rank(n, cuda), ra, ca, 2.0)
+    assert torch.equal(got, ref)  # dyadic inputs: every sum exact
+
+
+@pytest.mark.gpu
+def test_gpu_int8_kernel_rejects_affine_operands(cuda):
+    from qrag_tpu_torch.ops.cuda import fused_scan
+
+    x = torch.zeros((256, 32), device=cuda, dtype=torch.int8)
+    for kw in (dict(row_add=torch.zeros((1, 256), device=cuda)),
+               dict(col_add=torch.zeros((2, 1), device=cuda)), dict(alpha=2.0),
+               dict(planes=3)):
+        with pytest.raises(ValueError):
+            fused_scan.packed_window_scan(x[:2], x, None, **kw)
+    with pytest.raises(TypeError):
+        fused_scan.packed_window_scan(x[:2].bfloat16(), x, None)

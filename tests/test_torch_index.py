@@ -151,7 +151,6 @@ def test_load_bundled_reference_index(bundled_index_path):
 def test_unported_options_raise_and_device_default(monkeypatch):
     for kw in (
         {"small_batch_accel": "clustered"},
-        {"bounded_scan": "int8"},
         {"topk_mode": "approx"},
         {"topk_mode": "verified"},
         {"topk_mode": "refined"},
@@ -165,6 +164,7 @@ def test_unported_options_raise_and_device_default(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TIndex(d=8)
     assert TIndex(d=8, device="cpu").device == torch.device("cpu")
+    assert TIndex(d=8, bounded_scan="int8", device="cpu").bounded_scan == "int8"
 
 
 def test_fidelity_ops_match():

@@ -149,10 +149,18 @@ def test_plane_helpers_bit_equal():
 
 
 def test_scan_dispatch_rejects_int8():
+    """The int8 domain packs raw dots: affine operands, a third plane
+    and mixed dtypes are refused, as the reference kernels refuse them."""
     q = torch.zeros((2, 16), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        tfs.packed_window_scan(q, torch.zeros((128, 16), dtype=torch.int8),
-                               tws.make_lane_rank(128))
+    x = torch.zeros((128, 16), dtype=torch.int8)
+    lr = tws.make_lane_rank(128)
+    for kw in (dict(row_add=torch.zeros((1, 128))), dict(col_add=torch.zeros((2, 1))),
+               dict(alpha=2.0), dict(planes=3)):
+        with pytest.raises(ValueError):
+            tfs.packed_window_scan(q, x, lr, **kw)
+    with pytest.raises(TypeError):
+        tfs.packed_window_scan(q.float(), x, lr)
+    assert len(tfs.packed_window_scan(q, x, lr, planes=1)) == 1
 
 
 def test_budget_and_margin_functions_match():
