@@ -17,7 +17,14 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    dyadic inputs, the plane contract on random ones — and its int8 arm
    (planes 1-2) against ``packed_window_scan`` /
    ``packed_window_scan_top2_int``: bit-equal on every input, clipped
-   keys included;
+   keys included; the row-gather kernel against ``plain_gather_rows``
+   (bit-equal: f32, bf16 and int8 rows, d = 768 and 100, clamped
+   indices); the scan_topk kernel (f32 and bf16 arms) against
+   ``plain_scan_topk`` (l2 and ip, valid_rows, planted duplicates,
+   k = 1..1000): values within rtol 1e-5, or, where the score cancels
+   (a row against its own copy), within 1e-5 * (1 + |q|^2 + |x|^2), the
+   scale of f32 summation-order error; indices equal except between
+   rows whose scores lie within that tolerance of each other;
 4. exactness through the kernel: the reference's planted near-boundary,
    tie, escalation and fallback corpora (bf16 scan, f32 refine; int8
    scan, f32 refine; the int8 own domain) must give the oracle's
@@ -31,9 +38,19 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    bf16 store (/search equal index for index to the same search on the
    twin's planes, exact and lean; recall against the f32 oracle; int8
    planes=1 launches), then the own-domain index against
-   ``full_topk_int8_domain`` and the row scan's recall;
+   ``full_topk_int8_domain`` and the row scan's recall; and on the
+   default engine the routed serving layer: /search_rerank "auto" (a
+   mix of keyword and plain text, B=1 and B=64) and "classical", POST
+   /rerank with 100 documents on both routes, and a ``--batching``
+   server taking concurrent /search and /rerank — each against a plain
+   composition (f32 exact top-100, gather, the fidelity or cosine
+   expert, stable top-k; or the unbatched engine), with the gather
+   kernel's launches counted;
 6. timings (no pass condition): kernel vs twin beside the bound and the
-   GEMM alone, index.search B=1024, certificate census.
+   GEMM alone, index.search B=1024, certificate census; the gather and
+   scan_topk kernels beside their twins, their bounds and the library
+   calls (``torch.index_select``; matmul + ``torch.topk``); the routed
+   /search_rerank p50 at B=1.
 
 The last line is the JSON result; the line before it lists the kernels,
 the line before that the card.
@@ -59,6 +76,7 @@ CAP_1M = 1_250_176  # engine capacity for 1,000,000 rows (25% headroom)
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
 INT8_OPS_S = 1979e12
+FP32_FLOPS_S = 67e12  # FFMA, outside the tensor cores
 
 
 def _sh(cmd):
@@ -255,6 +273,117 @@ class Smoke:
             del x
         self.torch.cuda.empty_cache()
         print(f"kernel vs twin int8: {n_cases} cases bit-equal")
+
+    def gather_vs_twin(self):
+        """The row-gather kernel against plain_gather_rows: bit-equal."""
+        torch = self.torch
+        from qrag_tpu_torch.ops import gather_rows as tg
+
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        n_cases = 0
+        for d in (768, 100):
+            base = torch.randn((200_000, d), generator=gen, device=self.dev)
+            for dtype in (torch.float32, torch.bfloat16, torch.int8):
+                x = (base * 40).to(dtype) if dtype == torch.int8 else base.to(dtype)
+                for m in (1, 100, 6400, 102400):
+                    for it in (torch.int32, torch.int64):
+                        # clamped at both ends: out-of-range and negative rows
+                        idx = torch.randint(-1000, 201_000, (m,), generator=gen,
+                                            device=self.dev).to(it)
+                        got = tg.gather_rows(x, idx)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, tg.plain_gather_rows(x, idx)):
+                            raise AssertionError(f"gather {dtype} d={d} M={m} {it} != twin")
+                        n_cases += 1
+                del x
+            del base
+        self._free()
+        print(f"kernel vs twin gather: {n_cases} cases bit-equal (f32, bf16, int8 rows; "
+              f"d=768, 100; M=1, 100, 6400, 102400; int32 and int64 indices, clamped)")
+
+    def _check_topk(self, got, want, q, x, metric, bf16):
+        """scan_topk kernel vs twin under the summation-order tolerance.
+        Values agree within rtol 1e-5, except where the score cancels
+        (|score| < 1e-2 of its terms' scale, 1 + |q|^2 + |x|^2, e.g. the
+        l2 distance of a row to its own copy): two f32 sums of the same
+        products differ by a few ulps of the terms, not of the result,
+        so there they agree within 1e-5 of that scale.  Indices agree
+        except where the kernel's row scores, in f64 from the same
+        operands, within 1e-5 of the scale of the twin's slot.  Returns
+        (differing index slots, cancelling slots, max relative error
+        elsewhere)."""
+        torch = self.torch
+        (kv, ki), (pv, pi) = got, want
+        fin = torch.isfinite(pv)
+        if not torch.equal(fin, torch.isfinite(kv)) or not torch.equal(
+            (ki < 0), (pi < 0)
+        ):
+            raise AssertionError("scan_topk: sentinel slots differ from the twin")
+        qsq = (q.double() ** 2).sum(1)
+        b, t = torch.nonzero(fin, as_tuple=True)
+        scale = 1.0 + qsq[b] + (x[pi[b, t].long()].double() ** 2).sum(1)
+        ref = pv[b, t].double().abs()
+        err = (kv[b, t].double() - pv[b, t].double()).abs()
+        cancel = ref < 1e-2 * scale
+        rel = torch.where(cancel, 0.0, err / ref.clamp_min(1e-30))
+        bad = torch.where(cancel, err > 1e-5 * scale, rel > 1e-5)
+        if bool(bad.any()):
+            worst = int(torch.nonzero(bad)[0])
+            raise AssertionError(
+                f"scan_topk values outside the tolerance: err {float(err[worst])} at "
+                f"value {float(ref[worst])}, scale {float(scale[worst])}"
+            )
+        max_rel = float(rel.max()) if rel.numel() else 0.0
+        diff = ki != pi
+        if bool(diff.any()):
+            b, t = torch.nonzero(diff, as_tuple=True)
+            rows = ki[b, t].long()
+            qq, xx = q[b].double(), x[rows].double()
+            if bf16:
+                qq, xx = q[b].bfloat16().double(), x[rows].bfloat16().double()
+            g = (qq * xx).sum(1)
+            xsq = (x[rows].double() ** 2).sum(1)
+            if metric == "l2":
+                g = qsq[b] + xsq - 2 * g
+            if not bool(((g - pv[b, t].double()).abs() <= 1e-5 * (1 + qsq[b] + xsq)).all()):
+                raise AssertionError("scan_topk indices differ beyond a near-tie")
+        return int(diff.sum()), int(cancel.sum()), max_rel
+
+    def scan_topk_vs_twin(self):
+        """The scan_topk kernel (f32 and bf16 arms) against its twin."""
+        torch = self.torch
+        from qrag_tpu_torch.ops import scan_topk as ts
+
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        x = torch.randn((100_000, 768), generator=gen, device=self.dev)
+        x[7::1000] = x[3]  # planted duplicate rows: ties to the lower index
+        valid = torch.rand(100_000, generator=gen, device=self.dev) > 0.1
+        n_cases, n_diff, n_slots, n_cancel, max_rel = 0, 0, 0, 0, 0.0
+        for b in (1, 7, 64, 1024):
+            q = torch.randn((b, 768), generator=gen, device=self.dev)
+            q[0] = x[3]
+            for k in (1, 10, 100, 129, 1000):
+                for metric in ("l2", "ip"):
+                    for cd in (torch.float32, torch.bfloat16):
+                        for vr in (None, valid):
+                            got = ts.scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=cd)
+                            torch.cuda.synchronize()
+                            want = ts.plain_scan_topk(q, x, k, metric, valid_rows=vr,
+                                                      compute_dtype=cd)
+                            nd, nc, mr = self._check_topk(got, want, q, x, metric,
+                                                          cd == torch.bfloat16)
+                            n_diff, n_cancel = n_diff + nd, n_cancel + nc
+                            max_rel = max(max_rel, mr)
+                            n_slots += b * k
+                            n_cases += 1
+        del x, valid
+        self._free()
+        print(f"kernel vs twin scan_topk: {n_cases} cases ok (N=100000 d=768, B=1,7,64,1024, "
+              f"k=1,10,100,129,1000, l2+ip, f32+bf16, valid_rows or not, planted "
+              f"duplicates); values within rtol 1e-5 (max {max_rel:.3g}), except "
+              f"{n_cancel} cancelling slots within 1e-5 * (1 + |q|^2 + |x|^2); "
+              f"{n_diff} of {n_slots} index slots differ, all at near-ties (within "
+              f"1e-5 * (1 + |q|^2 + |x|^2))")
 
     # -------------------------------------------------------------- phase 4
 
@@ -524,10 +653,11 @@ class Smoke:
         return engine, snap
 
     @contextlib.contextmanager
-    def _serve(self, engine):
+    def _serve(self, engine, batching=False):
         from qrag_tpu_torch.serving.http_app import create_server
 
-        server = create_server(engine, "127.0.0.1", 0)
+        kw = {"max_wait_s": 0.005} if batching else {}
+        server = create_server(engine, "127.0.0.1", 0, batching=batching, **kw)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         try:
@@ -535,6 +665,8 @@ class Smoke:
         finally:
             server.shutdown()
             server.server_close()
+            if server.batcher is not None:
+                server.batcher.close()
             thread.join(timeout=30)
 
     def _unit(self, seed):
@@ -639,7 +771,177 @@ class Smoke:
                   f"effective_topk_modes={idx_stats['effective_topk_modes']} "
                   f"backend={stats['backend']} devices={stats['devices']}")
             self.timings(engine, port, unit)
+        launches.update(self.routed_path(engine, snap))
+        self.gather_timings(snap)
+        self.scan_topk_timings(snap, unit)
         return launches
+
+    def _routed_want(self, snap, qv, route, k=10):
+        """The plain composition of the routed rerank: f32 exact top-100
+        -> gather by indexing -> fidelity on the raw rows or cosine ->
+        stable top-k."""
+        torch = self.torch
+        from qrag_tpu_torch.ops.statevector import fidelity_analytic
+        from qrag_tpu_torch.ops.topk import top_k
+
+        qt, _, cand = self._oracle(snap, np.ascontiguousarray(qv, np.float32), 100)
+        rows = snap.matrix[cand.long()].float()
+        fid = fidelity_analytic(qt[:, None, :], rows, 4)
+        qn = qt / qt.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        cn = rows / rows.norm(dim=2, keepdim=True).clamp_min(1e-12)
+        cos = (cn * qn[:, None, :]).sum(2)
+        r = torch.tensor(route, device=self.dev)[:, None]
+        v, sel = top_k(torch.where(r, fid, cos), k)
+        return cand.gather(1, sel).cpu().numpy(), v.cpu().numpy()
+
+    def _check_routed(self, snap, qv, route, resp, used):
+        want_i, want_s = self._routed_want(snap, qv, route)
+        got = np.asarray([[h["index"] for h in r] for r in resp["results"]])
+        score = np.asarray([[h["score"] for h in r] for r in resp["results"]])
+        if not np.array_equal(got, want_i):
+            raise AssertionError(f"routed /search_rerank differs from the plain "
+                                 f"composition:\n{got}\n{want_i}")
+        np.testing.assert_allclose(score, want_s, rtol=1e-5, atol=1e-6)
+        if resp["reranker_used"] != used:
+            raise AssertionError(resp["reranker_used"])
+
+    def _docs_want(self, query, contents, route, top_k):
+        """The plain composition of POST /rerank: embed, score (fidelity
+        of the mock embeddings or cosine of the hash embeddings), stable
+        descending sort."""
+        torch = self.torch
+        from qrag_tpu_torch.ops.statevector import fidelity_analytic
+        from qrag_tpu_torch.ops.topk import cosine_scores
+        from qrag_tpu_torch.pipeline.embeddings import HashEmbedder, MockEmbedder
+
+        if route == "quantum":
+            e = torch.from_numpy(MockEmbedder(8)([query] + contents)).to(self.dev)
+            scores = fidelity_analytic(e[0], e[1:], 4)
+        else:  # the classical reranker embeds whitespace-collapsed text
+            texts = [" ".join(t.split())[:2048] for t in [query] + contents]
+            e = torch.from_numpy(HashEmbedder(256)(texts)).to(self.dev)
+            scores = cosine_scores(e[:1], e[1:])[0]
+        order = torch.sort(scores, descending=True, stable=True)[1][:top_k].cpu().numpy()
+        return [str(i) for i in order], scores.cpu().numpy()[order]
+
+    def _check_docs(self, query, contents, route, resp, top_k):
+        ids, scores = self._docs_want(query, contents, route, top_k)
+        got = [e["document"]["id"] for e in resp["documents"]]
+        if got != ids or resp["reranker_used"] != route:
+            raise AssertionError(f"/rerank {route}: {got} != {ids}")
+        np.testing.assert_allclose([e["score"] for e in resp["documents"]], scores,
+                                   rtol=1e-5, atol=1e-6)
+
+    def routed_path(self, engine, snap):
+        """The serving layer on the default engine: routed
+        /search_rerank, POST /rerank, and a batching server.  Returns the
+        gather kernel's launches of this run."""
+        from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.ops.cuda import gather_rows as cg
+        from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+        ctl = engine.controller
+        keyword = [f"find the advertisement segment {i}" for i in range(32)]
+        plain = [f"what is the weather on day {i}" for i in range(32)]
+        mixed = [t for pair in zip(keyword, plain) for t in pair]  # B=64
+        contents = [f"segment {i}: " + ("buy our product " if i % 3 else "the news ") * (1 + i % 5)
+                    for i in range(100)]
+        docs = [{"id": str(i), "content": c} for i, c in enumerate(contents)]
+        unit = self._unit(4)
+        vecs = unit(64)
+        with self._serve(engine) as port:
+            fused_scan.reset_launches()
+            cg.reset_launches()
+            ct.reset_launches()
+            t0 = time.perf_counter()
+            runs = [
+                (keyword[:1], "auto", "auto"), (plain[:1], "auto", "auto"),
+                (mixed, "auto", "auto"), (plain[:1], "classical", "classical"),
+                (mixed, "classical", "classical"),
+            ]
+            resps = [
+                _post(port, "/search_rerank", {"queries": t, "k": 10, "candidates": 100,
+                                               "reranker_type": rt})
+                for t, rt, _ in runs
+            ]
+            vec_classical = _post(port, "/search_rerank", {
+                "vectors": vecs.tolist(), "k": 10, "candidates": 100,
+                "reranker_type": "classical"})
+            rr_q = _post(port, "/rerank", {"query": keyword[0], "documents": docs, "top_k": 10})
+            rr_c = _post(port, "/rerank", {"query": plain[0], "documents": docs, "top_k": 10})
+            routed_s = time.perf_counter() - t0
+            gather_launches = cg.launches
+            scan_launches = dict(fused_scan.launches)
+            topk_launches = dict(ct.launches)
+        print(f"routed path launches: gather_rows {gather_launches}, scan {scan_launches}, "
+              f"scan_topk {topk_launches} ({routed_s:.2f} s of requests)")
+        if gather_launches < 1:
+            raise AssertionError("routed path: the gather kernel was not launched")
+        for (texts, _, used), resp in zip(runs, resps):
+            route = [ctl.select_reranker(t) == "quantum" for t in texts]
+            if used == "classical":
+                route = [False] * len(texts)
+            self._check_routed(snap, engine.embedder(texts), route, resp, used)
+        self._check_routed(snap, vecs, [False] * 64, vec_classical, "classical")
+        print("routed /search_rerank auto (keyword B=1, plain B=1, mixed B=64) and "
+              "classical (B=1, B=64 text; B=64 vectors), k=10 candidates=100: equal to "
+              "the oracle top-100 -> gather -> fidelity|cosine -> stable top-10")
+        self._check_docs(keyword[0], contents, "quantum", rr_q, 10)
+        self._check_docs(plain[0], contents, "classical", rr_c, 10)
+        print("POST /rerank 100 documents, quantum and classical routes: equal to the "
+              "plain composition (embed -> fidelity|cosine -> stable sort)")
+        self.batching_check(engine, unit, keyword, contents)
+        self.routed_latency(engine)
+        return {"gather_rows": gather_launches,
+                **{("scan_topk", arm): n for arm, n in topk_launches.items()}}
+
+    def batching_check(self, engine, unit, keyword, contents):
+        """A batching server under concurrent /search and /rerank: each
+        response equals the unbatched engine's."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from qrag_tpu_torch.documents import Document
+
+        docs = [{"id": str(i), "content": c} for i, c in enumerate(contents[:20])]
+        q = unit(16)
+        with self._serve(engine, batching=True) as port:
+            with ThreadPoolExecutor(24) as pool:
+                s_f = [pool.submit(_post, port, "/search", {"vectors": [q[i].tolist()], "k": 10})
+                       for i in range(16)]
+                r_f = [pool.submit(_post, port, "/rerank", {"query": keyword[i], "documents": docs,
+                                                            "top_k": 5})
+                       for i in range(8)]
+                searches = [f.result() for f in s_f]
+                reranks = [f.result() for f in r_f]
+            stats = _get(port, "/stats")["batcher"]
+        direct = engine.search(q, k=10)
+        for i, resp in enumerate(searches):
+            if [h["index"] for h in resp["results"][0]] != list(direct.indices[i]):
+                raise AssertionError(f"batched /search {i} differs from the unbatched engine")
+        objs = [Document(d["id"], d["content"]) for d in docs]
+        for i, resp in enumerate(reranks):
+            want = engine.rerank(keyword[i], objs, 5)
+            if [e["document"]["id"] for e in resp["documents"]] != [d.id for d, _ in want["documents"]]:
+                raise AssertionError(f"batched /rerank {i} differs from the unbatched engine")
+            np.testing.assert_allclose([e["score"] for e in resp["documents"]],
+                                       [s for _, s in want["documents"]], rtol=1e-6)
+        print(f"--batching server: 16 concurrent /search B=1 and 8 /rerank (20 documents) "
+              f"equal the unbatched engine; batcher stats {stats}")
+
+    def routed_latency(self, engine):
+        lat = []
+        with self._serve(engine) as port:
+            for i in range(21):
+                body = {"query": f"find the advertisement in episode {i}", "k": 10,
+                        "candidates": 100, "reranker_type": "auto"}
+                t0 = time.perf_counter()
+                _post(port, "/search_rerank", body)
+                lat.append(time.perf_counter() - t0)
+        lat = sorted(lat[1:])
+        print(f"timing [{self.card}]: HTTP /search_rerank auto (text, routed) B=1 k=10 "
+              f"candidates=100: p50 {1e3 * lat[len(lat) // 2]:.3f} ms, "
+              f"p90 {1e3 * lat[int(0.9 * len(lat))]:.3f} ms, min {1e3 * lat[0]:.3f} ms "
+              f"(20 requests)", flush=True)
 
     def bounded_int8_path(self, x):
         """(a) topk_mode="bounded", bounded_scan="int8", f32 store."""
@@ -917,6 +1219,82 @@ class Smoke:
                       f"torch._int_mm GEMM alone {gemm_ms:.4f} ms; planes bit-equal", flush=True)
                 self._kernel_row(("int8", planes), b, n, d, pairs, 0.0, gemm_ms)
 
+    def gather_timings(self, snap):
+        """The gather kernel on the engine's f32 store (1,250,176 x 768)
+        beside its twin, torch.index_select and the bytes bound."""
+        torch = self.torch
+        from qrag_tpu_torch.ops import gather_rows as tg
+
+        x = snap.matrix
+        gen = torch.Generator(device=self.dev).manual_seed(5)
+        for m in (100, 6400, 102400):
+            idx = torch.randint(0, snap.ntotal, (m,), generator=gen, device=self.dev)
+            if not torch.equal(tg.gather_rows(x, idx), tg.plain_gather_rows(x, idx)):
+                raise AssertionError(f"gather M={m}: kernel != twin")
+            pairs = self._time_pairs(lambda: tg.plain_gather_rows(x, idx),
+                                     lambda: tg.gather_rows(x, idx))
+            lib_ms = self._events_ms(lambda: torch.index_select(x, 0, idx), 20)
+            t_bytes = 2 * m * x.shape[1] * x.element_size() / HBM_BYTES_S
+            row = {
+                "ms": float(np.median([k for _, k in pairs])),
+                "plain_ms": float(np.median([p for p, _ in pairs])),
+                "bound_ms": 1e3 * t_bytes,
+                "bound_by": "bytes",
+                "max_abs_err": 0.0,
+                "library_ms": lib_ms,
+            }
+            self.kernel_rows[("gather_rows", m)] = row
+            print(f"timing [{self.card}]: gather_rows f32 M={m} d={x.shape[1]} from "
+                  f"N={x.shape[0]}: {row} (runs {pairs})", flush=True)
+
+    def scan_topk_timings(self, snap, unit):
+        """The scan_topk kernel (both arms) on the engine's f32 store and
+        real queries, beside its twin, a matmul + torch.topk composite
+        and the bound."""
+        torch = self.torch
+        from qrag_tpu_torch.ops import scan_topk as ts
+
+        x, sq, valid = snap.matrix, snap.sqnorms, snap.valid
+        n, d = x.shape
+        for b, k in ((1024, 10), (1, 100)):
+            q = torch.from_numpy(unit(b)).to(self.dev)
+            qsq = (q * q).sum(1)
+
+            def composite():
+                g = 2.0 * (q @ x.T) - qsq[:, None] - sq[None, :]
+                return torch.topk(torch.where(valid[None, :], g, -torch.inf), k)
+
+            comp_ms = self._events_ms(composite, 5)
+            for cd in (torch.float32, torch.bfloat16):
+                bf16 = cd == torch.bfloat16
+                got = ts.scan_topk(q, x, k, "l2", sq, valid, cd)
+                want = ts.plain_scan_topk(q, x, k, "l2", sq, valid, cd)
+                n_diff = self._check_topk(got, want, q, x, "l2", bf16)[0]
+                fin = torch.isfinite(want[0])
+                err = float((got[0][fin] - want[0][fin]).abs().max())
+                pairs = []
+                for _ in range(2):
+                    p0 = self._events_ms(lambda: ts.plain_scan_topk(q, x, k, "l2", sq, valid, cd), 1)
+                    k_ms = self._events_ms(lambda: ts.scan_topk(q, x, k, "l2", sq, valid, cd), 5)
+                    pairs.append((p0, k_ms))
+                t_bytes = ((b + n) * d * 4 + (b + n) * 4 + n + b * k * 8) / HBM_BYTES_S
+                t_ops = 2 * b * n * d / (BF16_FLOPS_S if bf16 else FP32_FLOPS_S)
+                row = {
+                    "ms": float(np.median([kk for _, kk in pairs])),
+                    "plain_ms": float(np.median([p for p, _ in pairs])),
+                    "bound_ms": 1e3 * max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "max_abs_err": err,
+                    "library_ms": None,
+                    "library_composite_ms": comp_ms,
+                }
+                self.kernel_rows[("scan_topk", str(cd).split(".")[-1], b)] = row
+                print(f"timing [{self.card}]: scan_topk {cd} l2 B={b} k={k} N={n} d={d}: {row} "
+                      f"(runs {pairs}; matmul + torch.topk composite {comp_ms:.4f} ms; "
+                      f"index slots differing at near-ties {n_diff})", flush=True)
+        self._free()
+
+
 
 def _check_exact(idx, vals, oi, ov, g, atol):
     """The repo's exactness contract (tests/test_bounded_topk.py
@@ -1064,6 +1442,8 @@ def main() -> int:
     smoke.build()
     smoke.kernel_vs_twin()
     smoke.int8_vs_twin()
+    smoke.gather_vs_twin()
+    smoke.scan_topk_vs_twin()
     smoke.exactness()
     smoke.exactness_int8()
     launches = smoke.main_path()
@@ -1087,6 +1467,29 @@ def main() -> int:
             # given as a floor beside it
             "library_ms": None,
             "gemm_floor_ms": row["gemm_floor_ms"],
+        })
+    row = smoke.kernel_rows[("gather_rows", 6400)]  # the routed path's B=64 x C=100
+    kernels.append({
+        "name": "gather_rows f32 M=6400 d=768",
+        "route": "cuda",
+        "source": "qrag_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "qrag_tpu/ops/pallas/gather_rows.py:34 (_gather_kernel), "
+                    "qrag_tpu/ops/pallas/gather_rows.py:131 (_gather_bs_kernel)",
+        "launches": launches["gather_rows"],
+        **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+    })
+    for arm in ("float32", "bfloat16"):
+        row = smoke.kernel_rows[("scan_topk", arm, 1024)]
+        kernels.append({
+            "name": f"scan_topk {arm} l2 B=1024 k=10",
+            "route": "cuda",
+            "source": "qrag_tpu_torch/csrc/scan_topk.cu",
+            "replaces": "qrag_tpu/ops/pallas/scan_topk.py:74 (_scan_topk_kernel)",
+            # 0 expected: like the reference's, on no dispatched path
+            "launches": launches[("scan_topk", arm)],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "library_composite_ms")},
         })
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smoke.card)

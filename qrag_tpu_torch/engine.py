@@ -1,23 +1,24 @@
-"""QragEngine — retrieval + fused quantum-fidelity rerank (PyTorch port
-of ``qrag_tpu.engine``).
+"""QragEngine — retrieval + fused rerank (PyTorch port of
+``qrag_tpu.engine``).
 
-One object owns the device-resident index and the embedder.  The fused
-path runs retrieval top-C -> gather of the candidates' cached rotation
-features -> analytic fidelity -> top-k on the device, with no host
-round trip between the stages.
+One object owns the device-resident index, the embedder and the
+rerankers.  The fused path runs retrieval top-C -> gather of the
+candidates' cached rotation features -> analytic fidelity -> top-k on
+the device, with no host round trip between the stages.  The routed
+path ("auto" and "classical") gathers the candidates' raw rows with the
+row-gather kernel (``ops.gather_rows``) and selects per query between
+the fidelity and the cosine expert.
 
 ``quantization="int8"`` builds the ``QuantizedFlatIndex`` (row or
 window scan, exact or gather-free scores); ``bounded_scan="int8"``
 runs the bounded scan, and the fused rerank's candidate generation,
 on int8 codes.
 
-Not ported yet (raise NotImplementedError, ROADMAP.md Queue 1 slice 2):
-the "auto" and "classical" rerankers and their controller, ``rerank``
-(document-list rerank), ``search_rerank_pipelined``, the routed fused
-graph and the sharded index; the full-statevector fidelity
-(``use_analytic_fidelity=False``, slice 7); the fused rerank over a
-quantized index (slice 5: the reference runs it on the unported approx
-scan).
+Not ported yet (raise NotImplementedError): the sharded index
+(ROADMAP.md, Queue 1 slice 6); the full-statevector fidelity and the
+amplitude encoding (``use_analytic_fidelity=False``, slice 7); the
+cross-encoder scorer (slice 3); the fused reranks over a quantized
+index (slice 5: the reference runs them on the unported approx scan).
 """
 
 from __future__ import annotations
@@ -32,15 +33,21 @@ import numpy as np
 import torch
 
 from qrag_tpu_torch.config import QragConfig
+from qrag_tpu_torch.documents import Document
 from qrag_tpu_torch.index.flat_index import DeviceFlatIndex, SearchResult
 from qrag_tpu_torch.index.quantized_index import QuantizedFlatIndex
 from qrag_tpu_torch.ops.topk import _finalize, flat_scan_topk, top_k
 from qrag_tpu_torch.pipeline.embeddings import Embedder, get_embedder
+from qrag_tpu_torch.reranker.controller import RerankerController
 from qrag_tpu_torch.utils.metrics import GLOBAL_METRICS, Metrics
 
 logger = logging.getLogger(__name__)
 
-_SLICE2 = "(ROADMAP.md, Queue 1 slice 2)"
+_QUANTIZED_FUSED = (
+    "the fused rerank over a quantized index is not ported yet "
+    "(ROADMAP.md, Queue 1 slice 5); use reranker_type='none' or an "
+    "unquantized index"
+)
 
 
 def _fused_candidates(
@@ -131,6 +138,51 @@ def fused_search_rerank(
     return top_fid, idx.gather(1, sel), retr_scores.gather(1, sel)
 
 
+def fused_search_rerank_routed(
+    query_vecs: torch.Tensor,  # (B, d)
+    route_quantum: torch.Tensor,  # (B,) bool — True: fidelity expert
+    corpus: torch.Tensor,  # (N, d)
+    corpus_sqnorms: torch.Tensor,  # (N,)
+    valid_rows: torch.Tensor,  # (N,) bool
+    k: int,
+    candidates: int,
+    n_qubits: int,
+    metric: str = "l2",
+    topk_mode: str = "exact",
+    bounded_bufs=None,
+    bounded_query_store: bool = False,
+    bounded_kind: str = "bf16",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-query expert-routed rerank: both experts score the gathered
+    (B, C, d) candidate rows — the analytic fidelity on the raw rows and
+    the cosine — and ``route_quantum`` picks per row.
+
+    Returns (scores (B, k) desc, corpus indices (B, k), retrieval
+    scores of the selected rows (B, k))."""
+    from qrag_tpu_torch.ops.gather_rows import gather_rows_2d
+    from qrag_tpu_torch.ops.statevector import fidelity_analytic
+
+    retr_scores, idx = _fused_candidates(
+        query_vecs, corpus, corpus_sqnorms, valid_rows, candidates, metric,
+        topk_mode, bounded_bufs, bounded_query_store, bounded_kind,
+    )  # (B, C)
+    # invalid slots (C > ntotal) carry out-of-range indices: the kernel
+    # clamps them, and the rows they fetch are masked below
+    cand = gather_rows_2d(corpus, idx).to(torch.float32)  # (B, C, d)
+    q32 = query_vecs.to(torch.float32)
+    fid = fidelity_analytic(q32[:, None, :], cand, n_qubits)  # expert 1
+    qn = q32 / torch.linalg.norm(q32, dim=-1, keepdim=True).clamp_min(1e-12)
+    cn = cand / torch.linalg.norm(cand, dim=-1, keepdim=True).clamp_min(1e-12)
+    cos = torch.einsum("bd,bcd->bc", qn, cn)  # expert 2
+    scores = torch.where(route_quantum[:, None], fid, cos)
+    invalid = (
+        torch.isinf(retr_scores) if metric == "l2" else torch.isneginf(retr_scores)
+    )
+    scores = torch.where(invalid, -torch.inf, scores)
+    top, sel = top_k(scores, k)
+    return top, idx.gather(1, sel), retr_scores.gather(1, sel)
+
+
 def _index_cls_and_kwargs(config: QragConfig):
     """Single source of truth for building an index from config
     (single device)."""
@@ -156,13 +208,14 @@ def _index_cls_and_kwargs(config: QragConfig):
 
 
 class QragEngine:
-    """Owns index + embedder; serves search and the fused rerank."""
+    """Owns index + embedder + rerankers; serves search and rerank."""
 
     def __init__(
         self,
         config: Optional[QragConfig] = None,
         index: Optional[DeviceFlatIndex] = None,
         embedder: Optional[Embedder] = None,
+        controller: Optional[RerankerController] = None,
         metrics: Optional[Metrics] = None,
         device=None,
     ):
@@ -179,6 +232,9 @@ class QragEngine:
         self.index = index
         self.device = index.device
         self.embedder = embedder or get_embedder(self.config.embedding)
+        self.controller = controller or RerankerController(
+            self.config, device=self.device
+        )
         self.metrics = metrics or GLOBAL_METRICS
 
     # ------------------------------------------------------------- index ops
@@ -216,13 +272,20 @@ class QragEngine:
         self.metrics.incr("search_requests")
         return result
 
-    def rerank(self, *args, **kwargs):
-        raise NotImplementedError(f"document-list rerank is not ported yet {_SLICE2}")
-
-    def search_rerank_pipelined(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"search_rerank_pipelined is not ported yet {_SLICE2}"
-        )
+    def rerank(
+        self,
+        query: str,
+        documents: List[Document],
+        top_k: Optional[int] = None,
+        reranker_type: str = "auto",
+    ) -> Dict[str, Any]:
+        """The reference's ``POST /rerank``: route, then rerank the
+        given documents."""
+        with self.metrics.timer("rerank"):
+            out = self.controller.rerank(query, documents, top_k, reranker_type)
+        self.metrics.incr("rerank_requests")
+        self.metrics.incr(f"rerank_{out['reranker_used']}")
+        return out
 
     def search_rerank(
         self,
@@ -231,23 +294,24 @@ class QragEngine:
         candidates: int = 100,
         reranker_type: str = "quantum",
     ) -> Dict[str, Any]:
-        """Fused retrieval -> quantum-fidelity rerank over the device
-        corpus: retrieves ``candidates`` nearest rows, returns the top
-        ``k`` by fidelity."""
-        if reranker_type in ("auto", "classical"):
-            raise NotImplementedError(
-                f"reranker_type {reranker_type!r} is not ported yet {_SLICE2}"
-            )
-        if reranker_type not in ("quantum", "none", "retrieval"):
+        """Fused retrieval -> rerank over the device corpus: retrieves
+        ``candidates`` nearest rows, returns the top ``k`` by fidelity
+        ("quantum"), cosine ("classical"), or the expert the controller
+        routes each text query to ("auto"; vectors without text rerank
+        by fidelity and say so)."""
+        if reranker_type not in ("auto", "quantum", "classical", "none", "retrieval"):
             raise ValueError(
                 f"unknown reranker_type {reranker_type!r}; expected "
                 "'auto', 'quantum', 'classical', or 'none'"
             )
         with self.metrics.timer("search_rerank"):
+            query_texts: Optional[List[str]] = None
             if isinstance(queries, str):
-                qv = self.embedder([queries])
+                query_texts = [queries]
             elif isinstance(queries, (list, tuple)):
-                qv = self.embedder([str(q) for q in queries])
+                query_texts = [str(q) for q in queries]
+            if query_texts is not None:
+                qv = self.embedder(query_texts)
             else:
                 qv = np.asarray(queries, dtype=np.float32)
             if qv.ndim == 1:
@@ -258,35 +322,39 @@ class QragEngine:
             c_eff = min(candidates, n)
             k_eff = min(k, c_eff)
             q = torch.from_numpy(np.ascontiguousarray(qv)).to(self.device)
-            if reranker_type == "quantum":
-                if isinstance(self.index, QuantizedFlatIndex):
-                    raise NotImplementedError(
-                        "the fused rerank over a quantized index is not "
-                        "ported yet (ROADMAP.md, Queue 1 slice 5); use "
-                        "reranker_type='none' or an unquantized index"
-                    )
-                if not self.config.quantum.use_analytic_fidelity:
-                    raise NotImplementedError(
-                        "the full-statevector fidelity is not ported yet "
-                        "(ROADMAP.md, Queue 1 slice 7)"
-                    )
-                snap = self.index.device_buffers()  # one atomic generation
-                fused_mode, bounded_kw = self._fused_candidate_mode(c_eff, snap)
-                n_qubits = self.config.quantum.n_qubits
-                fid, idx, retr = fused_search_rerank(
-                    q, snap.matrix, snap.sqnorms, snap.valid,
-                    k=k_eff, candidates=c_eff, n_qubits=n_qubits,
-                    fid_feats=self.index.fidelity_features(n_qubits, snap),
-                    metric=self.index.metric, topk_mode=fused_mode,
-                    **bounded_kw,
-                )
-                scores, indices = fid.cpu().numpy(), idx.cpu().numpy()
-                retr_scores = retr.cpu().numpy()
-            else:
+            if reranker_type == "auto" and query_texts is None:
+                # no text: the routing truth table cannot run
+                reranker_type = "quantum"
+            if reranker_type in ("none", "retrieval"):
                 retr_t, idx = self.index.search_device(q, k_eff)
                 scores, indices = retr_t.cpu().numpy(), idx.cpu().numpy()
                 retr_scores = scores
                 reranker_type = "none"  # honest label: no rerank ran
+            else:
+                if isinstance(self.index, QuantizedFlatIndex):
+                    raise NotImplementedError(_QUANTIZED_FUSED)
+                snap = self.index.device_buffers()  # one atomic generation
+                if reranker_type == "quantum":
+                    fid, idx, retr = self._fused_quantum(q, k_eff, c_eff, snap)
+                else:
+                    # "classical": the routed graph with an all-cosine mask
+                    route = [False] * qv.shape[0]
+                    if reranker_type == "auto":
+                        route = [
+                            self.controller.select_reranker(t) == "quantum"
+                            for t in query_texts
+                        ]
+                    fused_mode, bounded_kw = self._fused_candidate_mode(c_eff, snap)
+                    fid, idx, retr = fused_search_rerank_routed(
+                        q, torch.tensor(route, device=self.device),
+                        snap.matrix, snap.sqnorms, snap.valid,
+                        k=k_eff, candidates=c_eff,
+                        n_qubits=self.config.quantum.n_qubits,
+                        metric=self.index.metric, topk_mode=fused_mode,
+                        **bounded_kw,
+                    )
+                scores, indices = fid.cpu().numpy(), idx.cpu().numpy()
+                retr_scores = retr.cpu().numpy()
             results = self._build_hits(scores, indices, retr_scores, n)
         self.metrics.incr("search_rerank_requests")
         return {
@@ -294,6 +362,89 @@ class QragEngine:
             "results": results,
             "reranker_used": reranker_type,
         }
+
+    def _fused_quantum(self, q: torch.Tensor, k: int, candidates: int, snap):
+        """The fused quantum rerank of device queries ``q`` over one
+        snapshot: (fidelity, indices, retrieval scores) on the device."""
+        if not self.config.quantum.use_analytic_fidelity:
+            raise NotImplementedError(
+                "the full-statevector fidelity is not ported yet "
+                "(ROADMAP.md, Queue 1 slice 7)"
+            )
+        fused_mode, bounded_kw = self._fused_candidate_mode(candidates, snap)
+        n_qubits = self.config.quantum.n_qubits
+        return fused_search_rerank(
+            q, snap.matrix, snap.sqnorms, snap.valid,
+            k=k, candidates=candidates, n_qubits=n_qubits,
+            fid_feats=self.index.fidelity_features(n_qubits, snap),
+            metric=self.index.metric, topk_mode=fused_mode,
+            **bounded_kw,
+        )
+
+    def search_rerank_pipelined(
+        self,
+        queries: Union[Sequence[str], np.ndarray],
+        k: int = 10,
+        candidates: int = 100,
+        micro_batch: int = 32,
+        reranker_type: str = "quantum",
+    ) -> Dict[str, Any]:
+        """The quantum ``search_rerank`` in query micro-batches on one
+        stream: every micro-batch's work is enqueued before the first
+        result is copied to the host, so host-side result assembly
+        overlaps the device.  Results equal ``search_rerank(...,
+        reranker_type="quantum")`` on the concatenated batch."""
+        if reranker_type != "quantum":
+            raise ValueError(
+                "search_rerank_pipelined implements the quantum rerank "
+                "stage only; use search_rerank for "
+                f"reranker_type={reranker_type!r}"
+            )
+        if isinstance(queries, str):
+            queries = [queries]
+        if isinstance(queries, (list, tuple)):
+            qv = self.embedder([str(q) for q in queries])
+        else:
+            qv = np.asarray(queries, dtype=np.float32)
+        if qv.ndim == 1:
+            qv = qv[None, :]
+        n = self.index.ntotal
+        if n == 0:
+            return {"queries": qv.shape[0], "results": [], "reranker_used": reranker_type}
+        if isinstance(self.index, QuantizedFlatIndex):
+            raise NotImplementedError(_QUANTIZED_FUSED)
+        c_eff = min(candidates, n)
+        k_eff = min(k, c_eff)
+        snap = self.index.device_buffers()  # one generation for every stage
+        q = torch.from_numpy(np.ascontiguousarray(qv)).to(self.device)
+        in_flight = [
+            self._fused_quantum(q[i : i + micro_batch], k_eff, c_eff, snap)
+            for i in range(0, q.shape[0], micro_batch)
+        ]
+        results = []
+        for fid, idx, retr in in_flight:  # fetch in order
+            results.extend(
+                self._build_hits(
+                    fid.cpu().numpy(), idx.cpu().numpy(), retr.cpu().numpy(), n
+                )
+            )
+        self.metrics.incr("search_rerank_pipelined_requests")
+        return {"queries": qv.shape[0], "results": results, "reranker_used": reranker_type}
+
+    def sample_recall(self, k: int = 10, samples: int = 16, seed: int = 0) -> float:
+        """Observability self-check: perturb random corpus rows slightly
+        and measure the fraction whose source row lands in the top-k."""
+        n = self.index.ntotal
+        if n == 0:
+            return 0.0
+        rng = np.random.RandomState(seed)
+        rows = rng.choice(n, size=min(samples, n), replace=False)
+        base = self.index.sample_rows(rows)
+        noise = 1e-3 * rng.randn(*base.shape).astype(np.float32)
+        res = self.index.search(base + noise, k=min(k, n))
+        hits = sum(1 for qi, row in enumerate(rows) if row in set(res.indices[qi]))
+        self.metrics.incr("recall_samples", len(rows))
+        return hits / len(rows)
 
     def _fused_candidate_mode(self, candidates: int, snap):
         """Effective candidate-generation mode of the fused path and the
@@ -410,7 +561,7 @@ class QragEngine:
             )
             eligible = cap >= 4096 and cap % 128 == 0 and cap // 128 >= max(c, 16)
             fused = "bounded" if eligible and idx.ntotal else "exact"
-        return {"search": mode, "fused_candidates": fused}
+        return {"search": mode, "fused_candidates": fused, "pipelined_stage1": fused}
 
     def stats(self) -> Dict[str, Any]:
         dev = self.device

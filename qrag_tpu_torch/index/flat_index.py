@@ -185,6 +185,11 @@ class DeviceFlatIndex:
     def ntotal(self) -> int:
         return self._host_vectors.shape[0]
 
+    def sample_rows(self, rows: Sequence[int]) -> np.ndarray:
+        """Host copies of the stored rows ``rows`` (recall sampling,
+        tooling)."""
+        return np.asarray(self._host_vectors[np.asarray(rows, dtype=np.int64)])
+
     def add(
         self, vectors: np.ndarray, metadata: Optional[Sequence[str]] = None
     ) -> int:
@@ -434,6 +439,12 @@ class DeviceFlatIndex:
                 f"expected (*, {self.d}) queries, got {queries.shape}"
             )
         k_eff = min(k, max(self.ntotal, 1))
+        if queries.shape[0] == 0:
+            return SearchResult(
+                scores=np.zeros((0, k_eff), np.float32),
+                indices=np.zeros((0, k_eff), np.int32),
+                metadata=[],
+            )
         q = torch.from_numpy(queries).to(self.device)
         if self._bounded_eligible(k_eff):
             vals, idx, fell_back, _, escalated = self._bounded_search(q, k_eff)

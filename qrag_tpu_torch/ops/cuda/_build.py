@@ -3,9 +3,10 @@
 Every ``qrag_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, at
 first use, into ``build/qrag_tpu_torch/<hash of the sources>/`` under
-the checkout root, and loaded with ``ctypes``.  A changed source gets a
-new directory, so a stale library is never loaded.  Nothing here runs
-at import: the CPU-only test environment has no ``nvcc``.
+the checkout root, and loaded with ``ctypes``.  One ``nvcc`` per source
+runs, all started together, then one link.  A changed source gets a new
+directory, so a stale library is never loaded.  Nothing here runs at
+import: the CPU-only test environment has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "qrag_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LIB_NAME = "libqrag_tpu_torch.so"
 
 _lock = threading.Lock()
@@ -54,7 +56,7 @@ def _sources(csrc: Path = CSRC):
 
 def library_path(csrc: Path = CSRC, build_root: Path = BUILD_ROOT) -> Path:
     """Where the library for the sources of ``csrc`` lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -68,19 +70,39 @@ def build_library(csrc: Path = CSRC, build_root: Path = BUILD_ROOT):
     if path.exists():
         return path, None
     path.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: a concurrent process
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cu = [str(s) for s in _sources(csrc) if s.suffix == ".cu"]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    # build in a temporary directory and rename the library: a
+    # concurrent process never loads a half-written one
+    work = Path(tempfile.mkdtemp(dir=path.parent))
+    try:
+        cu = [s for s in _sources(csrc) if s.suffix == ".cu"]
+        objs = [work / f"{s.stem}.o" for s in cu]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for s, o in zip(cu, objs)
+        ]
+        outs = [p.communicate() for p in procs]
+        failed = [
+            f"{s.name} ({p.returncode}):\n{err}"
+            for s, p, (_, err) in zip(cu, procs, outs)
+            if p.returncode != 0
+        ]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = work / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed (link, {link.returncode}):\n{link.stderr}")
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return path, "".join(out + err for out, err in outs)
 
 
 def bind(path: Path) -> ctypes.CDLL:
@@ -90,11 +112,21 @@ def bind(path: Path) -> ctypes.CDLL:
     fn = lib.qrag_packed_window_scan
     fn.argtypes = [P, P, P, P, I, I, I, ctypes.c_float, I, P, P, P, P]
     fn.restype = I
-    # an older build (scan_ab's other side) may predate the int8 arm
+    L = ctypes.c_longlong
+    # an older build (scan_ab's other side) may predate the int8 arm and
+    # the gather and scan_topk kernels
     if hasattr(lib, "qrag_packed_window_scan_int8"):
         fn8 = lib.qrag_packed_window_scan_int8
         fn8.argtypes = [P, P, I, I, I, I, P, P, P]
         fn8.restype = I
+    if hasattr(lib, "qrag_gather_rows"):
+        g = lib.qrag_gather_rows
+        g.argtypes = [P, P, I, L, L, L, P, P]
+        g.restype = I
+    if hasattr(lib, "qrag_scan_topk"):
+        s = lib.qrag_scan_topk
+        s.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, I, I, L, P, P, P, P, P]
+        s.restype = I
     return lib
 
 
@@ -103,7 +135,7 @@ def load_library() -> ctypes.CDLL:
     global _lib, build_log
     with _lock:
         if _lib is None:
-            path, log = build_library()
+            path, log = build_library(CSRC, BUILD_ROOT)
             if log is not None:
                 build_log = log
             _lib = bind(path)

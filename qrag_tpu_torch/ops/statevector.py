@@ -21,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+SLICE7 = "(ROADMAP.md, Queue 1 slice 7)"
+
 
 def _normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """L2-normalize; zero vectors pass through unchanged."""
@@ -50,6 +52,21 @@ def fidelity_analytic(
     qa = F.pad(q[..., :kq], (0, k - kq))
     da = F.pad(d[..., :kd], (0, k - kd))
     return _per_qubit_product(qa, da)
+
+
+def batched_fidelity(
+    query_vec: torch.Tensor,
+    doc_vecs: torch.Tensor,
+    n_qubits: int,
+    analytic: bool = True,
+) -> torch.Tensor:
+    """(m,) query x (N, m) docs -> (N,) fidelity scores (broadcasting
+    over leading dims: (P, m) x (P, m) gives one score per pair)."""
+    if not analytic:
+        raise NotImplementedError(
+            f"the full-statevector fidelity is not ported yet {SLICE7}"
+        )
+    return fidelity_analytic(query_vec, doc_vecs, n_qubits)
 
 
 def rotation_features(

@@ -3,22 +3,31 @@
 The surface and the request/response shapes of
 ``qrag_tpu.serving.http_app``:
 
+  POST /rerank         — {query, documents: [{id, content, source?}],
+                         reranker_type?, top_k?} -> {documents:
+                         [{document, score}], reranker_used, query}
   POST /search         — {query: str | queries: [str] | vectors: [[f]],
-                         k?, stream?} -> top-k over the device index;
-                         ``stream: true`` returns chunked NDJSON (hits
-                         in <=512-row spans + a final {"done": true})
-  POST /search_rerank  — fused retrieval -> quantum-fidelity rerank
+                         k?, stream?, priority?} -> top-k over the
+                         device index; ``stream: true`` returns chunked
+                         NDJSON (hits in <=512-row spans + a final
+                         {"done": true})
+  POST /search_rerank  — fused retrieval -> rerank (quantum, classical
+                         or auto-routed)
   POST /add            — {texts: [str], metadata?: [str]} ingestion
   GET  /               — service info
-  GET  /stats          — counters + latency histograms
+  GET  /docs           — JSON API description
+  GET  /stats          — counters + latency histograms (``?recall=1``
+                         adds a sampled recall@10 self-check)
 
 Handler-level failures return ``{"error": str}`` with HTTP 200 (the
-reference's behavior), 400/404 for protocol problems.  ``POST /rerank``
-answers 501: the document-list rerank is not ported yet (ROADMAP.md,
-Queue 1 slice 2), and neither are ``--batching``, ``--sharded`` and
-``--elastic``.  ``--bounded-scan int8`` and ``--lean-scan`` select the
-int8 retrieval modes.  Requests run on the handler threads, each
-launching the kernels on its own current CUDA stream.
+reference's behavior), 400/404 for protocol problems.  ``--batching``
+coalesces concurrent /search, /search_rerank (except "auto") and
+/rerank requests into device batches (``serving/batcher.py``).
+``--sharded`` and ``--elastic`` are not ported yet (ROADMAP.md, Queue 1
+slice 6).  ``--bounded-scan int8`` and ``--lean-scan`` select the int8
+retrieval modes.  Requests run on the handler threads, each launching
+the kernels on its own current CUDA stream; with ``--batching`` the
+batcher's worker thread runs the device calls.
 """
 
 from __future__ import annotations
@@ -35,8 +44,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from qrag_tpu_torch.config import QragConfig
+from qrag_tpu_torch.documents import Document
 from qrag_tpu_torch.engine import QragEngine, _index_cls_and_kwargs
 from qrag_tpu_torch.pipeline.embeddings import get_embedder
+from qrag_tpu_torch.reranker.controller import rerank_response_dict
+from qrag_tpu_torch.serving.batcher import SearchBatcher
 from qrag_tpu_torch.utils.logging_util import configure_logging
 
 logger = logging.getLogger(__name__)
@@ -46,6 +58,7 @@ SERVICE_INFO = {
     "version": "0.1.0",
     "use_case": "Podcast advertisement detection",
     "endpoints": {
+        "rerank": "POST /rerank - rerank documents (quantum/classical/auto)",
         "search": "POST /search - exact top-k over the device-resident index",
         "search_rerank": "POST /search_rerank - fused retrieval + quantum rerank",
         "add": "POST /add - embed + ingest texts",
@@ -53,10 +66,43 @@ SERVICE_INFO = {
     },
 }
 
-_NOT_PORTED = "not ported to qrag_tpu_torch yet (ROADMAP.md, Queue 1 slice 2)"
+_NOT_PORTED = "not ported to qrag_tpu_torch yet (ROADMAP.md, Queue 1 slice 6)"
+
+API_DOCS = {
+    "service": SERVICE_INFO["message"],
+    "endpoints": {
+        "POST /rerank": {
+            "body": {
+                "query": "str",
+                "documents": [{"id": "str", "content": "str", "source": "str?"}],
+                "reranker_type": "auto|quantum|classical",
+                "top_k": "int?",
+            },
+        },
+        "POST /search": {
+            "body": {
+                "query | queries | vectors": "...",
+                "k": "int?",
+                "stream": "bool? (chunked NDJSON)",
+                "priority": "int? (-10..10)",
+            },
+        },
+        "POST /search_rerank": {
+            "body": {
+                "query | queries | vectors": "...",
+                "k": "int?",
+                "candidates": "int?",
+                "reranker_type": "quantum|classical|auto",
+                "priority": "int? (-10..10)",
+            },
+        },
+        "POST /add": {"body": {"texts": ["str"], "metadata": ["str?"]}},
+        "GET /stats": {"query": "?recall=1"},
+    },
+}
 
 
-def _make_handler(engine: QragEngine):
+def _make_handler(engine: QragEngine, batcher: Optional[SearchBatcher] = None):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -97,8 +143,15 @@ def _make_handler(engine: QragEngine):
         def do_GET(self):
             if self.path == "/":
                 self._send_json(SERVICE_INFO)
+            elif self.path == "/docs":
+                self._send_json(API_DOCS)
             elif self.path.startswith("/stats"):
-                self._send_json(engine.stats())
+                stats = engine.stats()
+                if batcher is not None:
+                    stats["batcher"] = batcher.stats()
+                if "recall" in self.path.partition("?")[2]:
+                    stats["sampled_recall_at_10"] = engine.sample_recall(k=10)
+                self._send_json(stats)
             else:
                 self._send_json({"error": f"not found: {self.path}"}, 404)
 
@@ -108,7 +161,7 @@ def _make_handler(engine: QragEngine):
                 return
             try:
                 if self.path == "/rerank":
-                    self._send_json({"error": f"POST /rerank is {_NOT_PORTED}"}, 501)
+                    self._send_json(self._handle_rerank(body))
                 elif self.path == "/search" and body.get("stream"):
                     self._stream_search(body)
                 elif self.path == "/search":
@@ -123,10 +176,50 @@ def _make_handler(engine: QragEngine):
                 logger.exception("error during request")
                 self._send_json({"error": str(e)})
 
+        def _handle_rerank(self, body: Dict[str, Any]) -> Dict[str, Any]:
+            query = body.get("query")
+            if not isinstance(query, str):
+                return {"error": "query must be a string"}
+            raw_docs = body.get("documents")
+            if not isinstance(raw_docs, list):
+                return {"error": "documents must be a list"}
+            documents = [
+                Document(
+                    id=str(d.get("id", i)),
+                    content=str(d.get("content", "")),
+                    source=d.get("source"),
+                )
+                for i, d in enumerate(raw_docs)
+            ]
+            top_k = body.get("top_k", engine.config.serving.default_top_k)
+            rtype = body.get("reranker_type", "auto")
+            if batcher is not None:
+                result = batcher.rerank_documents(
+                    query, documents, top_k=top_k, reranker_type=rtype,
+                    priority=self._priority(body),
+                )
+                engine.metrics.incr("rerank_requests")
+                engine.metrics.incr(f"rerank_{result['reranker_used']}")
+            else:
+                result = engine.rerank(query, documents, top_k=top_k, reranker_type=rtype)
+            return rerank_response_dict(result)
+
+        def _priority(self, body: Dict[str, Any]) -> int:
+            """Request priority, clamped to the documented -10..10."""
+            return max(-10, min(10, int(body.get("priority", 0))))
+
+        def _embedded(self, queries):
+            """Text queries embedded on the host; vectors as given."""
+            if isinstance(queries, np.ndarray):
+                return queries
+            return engine.embedder([str(q) for q in queries])
+
         def _search_result(self, body: Dict[str, Any]):
-            """Parse the queries of /search and run them.  Returns
-            (SearchResult, None) or (None, error dict)."""
+            """Parse the queries of /search and run them, through the
+            batcher when batching.  Returns (SearchResult, None) or
+            (None, error dict)."""
             k = int(body.get("k", 10))
+            prio = self._priority(body)
             if "vectors" in body:
                 queries = np.asarray(body["vectors"], dtype=np.float32)
             elif "queries" in body:
@@ -135,6 +228,8 @@ def _make_handler(engine: QragEngine):
                 queries = [body["query"]]
             else:
                 return None, {"error": "provide query, queries, or vectors"}
+            if batcher is not None:
+                return batcher.search(self._embedded(queries), k=k, priority=prio), None
             return engine.search(queries, k=k), None
 
         def _stream_search(self, body: Dict[str, Any]) -> None:
@@ -207,11 +302,18 @@ def _make_handler(engine: QragEngine):
                 queries = list(body["queries"])
             else:
                 return {"error": "provide query, queries, or vectors"}
+            k = int(body.get("k", 10))
+            candidates = int(body.get("candidates", 100))
+            rtype = body.get("reranker_type", "quantum")
+            # "auto" routes on the query text, which the batcher's
+            # vectors no longer carry
+            if batcher is not None and rtype != "auto":
+                return batcher.search_rerank(
+                    self._embedded(queries), k=k, candidates=candidates,
+                    reranker_type=rtype, priority=self._priority(body),
+                )
             return engine.search_rerank(
-                queries,
-                k=int(body.get("k", 10)),
-                candidates=int(body.get("candidates", 100)),
-                reranker_type=body.get("reranker_type", "quantum"),
+                queries, k=k, candidates=candidates, reranker_type=rtype
             )
 
         def _handle_add(self, body: Dict[str, Any]) -> Dict[str, Any]:
@@ -225,9 +327,18 @@ def _make_handler(engine: QragEngine):
 
 
 def create_server(
-    engine: QragEngine, host: str = "0.0.0.0", port: int = 8000
+    engine: QragEngine,
+    host: str = "0.0.0.0",
+    port: int = 8000,
+    batching: bool = False,
+    **batcher_kwargs,
 ) -> ThreadingHTTPServer:
-    return ThreadingHTTPServer((host, port), _make_handler(engine))
+    """The HTTP server over ``engine``; with ``batching`` its
+    ``SearchBatcher`` is ``server.batcher`` (close it after shutdown)."""
+    batcher = SearchBatcher(engine, **batcher_kwargs) if batching else None
+    server = ThreadingHTTPServer((host, port), _make_handler(engine, batcher))
+    server.batcher = batcher
+    return server
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -272,7 +383,12 @@ def _parser() -> argparse.ArgumentParser:
         "approximate (block-int8, ~1%%)",
     )
     parser.add_argument("--no-warmup", action="store_true")
-    for flag in ("--batching", "--sharded", "--elastic"):
+    parser.add_argument(
+        "--batching",
+        action="store_true",
+        help="coalesce concurrent requests into device batches",
+    )
+    for flag in ("--sharded", "--elastic"):
         parser.add_argument(flag, action="store_true", help=f"{_NOT_PORTED}")
     return parser
 
@@ -281,7 +397,7 @@ def _configure(parser: argparse.ArgumentParser, args) -> QragConfig:
     """The config the flags select (env overrides first), after the
     reference's argument checks; each index choice is also written to
     the env channel, which engine bundles re-read (``QragEngine.load``)."""
-    for flag in ("batching", "sharded", "elastic"):
+    for flag in ("sharded", "elastic"):
         if getattr(args, flag):
             parser.error(f"--{flag} is {_NOT_PORTED}")
     config = QragConfig().with_env_overrides()
@@ -338,8 +454,12 @@ def main(argv=None) -> None:
     else:
         engine = QragEngine(config=config, device=args.device)
 
-    # bind before warmup so clients can connect immediately
-    server = create_server(engine, host, port)
+    # bind before warmup so clients can connect immediately; the
+    # coalesced pair axis stays within the configured doc buckets
+    server = create_server(
+        engine, host, port, batching=args.batching,
+        **({"max_pairs": max(config.serving.doc_buckets)} if args.batching else {}),
+    )
     if not args.no_warmup:
         threading.Thread(target=engine.warmup, daemon=True).start()
     logger.info("serving on %s:%d (index ntotal=%d)", host, port, engine.index.ntotal)

@@ -16,6 +16,7 @@ import pytest
 
 from qrag_tpu.config import QragConfig
 from qrag_tpu.engine import QragEngine as JEngine
+from qrag_tpu_torch.documents import Document
 from qrag_tpu_torch.engine import QragEngine as TEngine
 from qrag_tpu_torch.serving.http_app import create_server
 
@@ -90,22 +91,33 @@ def test_bundle_written_by_port_reads_in_jax(engines, tmp_path):
 
 def test_unported_paths_raise(engines):
     _, te = engines
-    for rtype in ("auto", "classical"):
-        with pytest.raises(NotImplementedError):
-            te.search_rerank(_queries(5, 1), reranker_type=rtype)
-    for call in (te.rerank, te.search_rerank_pipelined):
-        with pytest.raises(NotImplementedError):
-            call("q", [])
-    for over in ({"index": {"sharded": True}},
-                 {"embedding": {"provider": "trained", "dim": 8}}):
-        with pytest.raises(NotImplementedError):
+    for over, match in (
+        ({"index": {"sharded": True}}, "slice 6"),
+        ({"embedding": {"provider": "trained", "dim": 8}}, "trained"),
+        ({"classical": {"method": "cross-encoder"}}, "slice 3"),
+    ):
+        with pytest.raises(NotImplementedError, match=match):
             TEngine(config=QragConfig.from_dict(over), device="cpu")
+    te_sv = TEngine(
+        config=QragConfig.from_dict({**CFG, "quantum": {"use_analytic_fidelity": False}}),
+        index=te.index, device="cpu",
+    )
+    for call in (te_sv.search_rerank, te_sv.search_rerank_pipelined):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            call(_queries(5, 1))
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        te_sv.rerank("find the ad", [Document("a", "text")], reranker_type="quantum")
     quant = TEngine(config=QragConfig.from_dict(
         {"index": {"quantization": "int8"}, "embedding": {"provider": "hash", "dim": D}}
     ), device="cpu")
     quant.index.add(_queries(7, 64))
+    for rtype in ("quantum", "auto", "classical"):  # the fused reranks over int8 codes
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            quant.search_rerank(["find the ad"], reranker_type=rtype)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant.search_rerank(_queries(7, 1))  # the fused rerank over int8 codes
+        quant.search_rerank_pipelined(_queries(7, 1))
+    with pytest.raises(ValueError):
+        te.search_rerank(_queries(5, 1), reranker_type="bogus")
 
 
 def test_stats_warmup_and_add(bundle):
@@ -114,7 +126,7 @@ def test_stats_warmup_and_add(bundle):
     st = te.stats()
     assert st["backend"] == "cpu" and st["devices"] == ["cpu"]
     assert st["index"]["effective_topk_modes"] == {
-        "search": "bounded", "fused_candidates": "bounded"
+        "search": "bounded", "fused_candidates": "bounded", "pipelined_stage1": "bounded"
     }
     assert te.add_texts(["new text"], ["m"]) == N + 1
     assert te.search("new text", k=1).indices[0, 0] == N
@@ -159,7 +171,9 @@ def test_http_surface(bundle):
         assert st == 200 and out["reranker_used"] == "quantum"
         assert out == json.loads(json.dumps(te.search_rerank(q, k=5, candidates=100)))
         st, raw = _call(port, "/rerank", {"query": "x", "documents": []})
-        assert st == 501 and "not ported" in json.loads(raw)["error"]
+        assert st == 200 and json.loads(raw) == {
+            "documents": [], "reranker_used": "classical", "query": "x"
+        }
         st, raw = _call(port, "/add", {"texts": ["fresh"]})
         assert json.loads(raw) == {"stored_count": 1, "total_vectors": N + 1}
         st, raw = _call(port, "/stats")
@@ -176,7 +190,7 @@ def test_http_surface(bundle):
 def test_server_flags_not_ported():
     from qrag_tpu_torch.serving.http_app import main
 
-    for flag in ("--batching", "--sharded", "--elastic"):
+    for flag in ("--sharded", "--elastic"):
         with pytest.raises(SystemExit):
             main([flag])
 
@@ -192,6 +206,11 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    __import__(name)\n"
         "assert len(names) >= 20, names\n"
+        "new = {'documents', 'reranker', 'reranker.classical', 'reranker.quantum',\n"
+        "       'reranker.controller', 'serving.batcher', 'serving.app',\n"
+        "       'ops.gather_rows', 'ops.scan_topk', 'ops.cuda.gather_rows',\n"
+        "       'ops.cuda.scan_topk'}\n"
+        "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'qrag_tpu' or m.startswith('qrag_tpu.')]\n"
         "assert not bad, bad\n"

@@ -115,3 +115,81 @@ def test_gpu_int8_kernel_rejects_affine_operands(cuda):
             fused_scan.packed_window_scan(x[:2], x, None, **kw)
     with pytest.raises(TypeError):
         fused_scan.packed_window_scan(x[:2].bfloat16(), x, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [768, 100, 13])
+def test_gpu_gather_kernel_bit_equal(cuda, dtype, d):
+    from qrag_tpu_torch.ops import gather_rows as tg
+    from qrag_tpu_torch.ops.cuda import gather_rows as cg
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randint(-127, 128, (3000, d), generator=g, device=cuda).to(dtype)
+    for m in (1, 100, 6400):
+        for it in (torch.int32, torch.int64):
+            idx = torch.randint(-40, 3040, (m,), generator=g, device=cuda).to(it)
+            before = cg.launches
+            got = tg.gather_rows(x, idx)
+            torch.cuda.synchronize()
+            assert cg.launches == before + 1
+            assert torch.equal(got, tg.plain_gather_rows(x, idx))
+    idx2 = torch.randint(0, 3000, (8, 16), generator=g, device=cuda)
+    assert torch.equal(tg.gather_rows_2d(x, idx2.T), x[idx2.T])  # strided 2-D index
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 129, 1000])
+def test_gpu_scan_topk_matches_twin(cuda, compute_dtype, k):
+    """Dyadic inputs: every dot is exact in either summation order, so
+    indices (ties to the lower row) and values equal the twin's."""
+    from qrag_tpu_torch.ops import scan_topk as ts
+
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randint(-8, 9, (20000, 64), generator=g, device=cuda) / 16
+    x[5::997] = x[3]  # planted duplicates
+    valid = torch.rand(20000, generator=g, device=cuda) > 0.2
+    for b in (1, 7, 64):
+        q = torch.randint(-8, 9, (b, 64), generator=g, device=cuda) / 16
+        for metric in ("l2", "ip"):
+            for vr in (None, valid):
+                got = ts.scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=compute_dtype)
+                torch.cuda.synchronize()
+                want = ts.plain_scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=compute_dtype)
+                assert torch.equal(got[1], want[1])
+                assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_gpu_scan_topk_k_limit_and_sentinels(cuda):
+    from qrag_tpu_torch.ops import scan_topk as ts
+
+    x = torch.randn((3000, 32), device=cuda)
+    with pytest.raises(ValueError, match="k <= 1024"):
+        ts.scan_topk(x[:2], x, 1025)
+    valid = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    valid[[4, 2500]] = True
+    s, i = ts.scan_topk(x[:2], x, 5, "ip", valid_rows=valid)
+    assert torch.isneginf(s[:, 2:]).all() and (i[:, 2:] == -1).all()
+    assert set(i[0, :2].tolist()) == {4, 2500}
+
+
+@pytest.mark.gpu
+def test_gpu_build_failure_raises(cuda, tmp_path, monkeypatch):
+    """A kernel that does not build raises; nothing falls back to the
+    plain twin or a library call."""
+    from qrag_tpu_torch.ops import gather_rows as tg
+    from qrag_tpu_torch.ops import scan_topk as ts
+    from qrag_tpu_torch.ops.cuda import _build
+
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "broken.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    x = torch.randn((300, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tg.gather_rows(x, torch.arange(4, device=cuda))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ts.scan_topk(x[:2], x, 3)

@@ -161,8 +161,11 @@ def test_unported_options_raise_and_device_default(monkeypatch):
     with pytest.raises(ValueError):
         TIndex(d=8, metric="cosine", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        TIndex(d=8)
+    from qrag_tpu_torch.reranker import ClassicalReranker, QuantumReranker, RerankerController
+
+    for make in (lambda: TIndex(d=8), ClassicalReranker, QuantumReranker, RerankerController):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
     assert TIndex(d=8, device="cpu").device == torch.device("cpu")
     assert TIndex(d=8, bounded_scan="int8", device="cpu").bounded_scan == "int8"
 
