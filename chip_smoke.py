@@ -19,9 +19,13 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    ``packed_window_scan_top2_int``: bit-equal on every input, clipped
    keys included; the row-gather kernel against ``plain_gather_rows``
    (bit-equal: f32, bf16 and int8 rows, d = 768 and 100, clamped
-   indices); the scan_topk kernel (f32 and bf16 arms) against
-   ``plain_scan_topk`` (l2 and ip, valid_rows, planted duplicates,
-   k = 1..1000): values within rtol 1e-5, or, where the score cancels
+   indices); the scan_topk kernel (f32 and bf16 compute; the stream,
+   wgmma (64 and 128 queries a block), tiled and general arms, each of
+   which must be reached)
+   against ``plain_scan_topk`` (l2 and ip, valid_rows, planted
+   duplicates, k = 1..1024, B and k on both sides of every cut between
+   arms, tiles and buffers, d = 768, 100, 13, N below one tile and no
+   multiple of one): values within rtol 1e-5, or, where the score cancels
    (a row against its own copy), within 1e-5 * (1 + |q|^2 + |x|^2), the
    scale of f32 summation-order error; indices equal except between
    rows whose scores lie within that tolerance of each other;
@@ -50,10 +54,16 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    GEMM alone, index.search B=1024, certificate census; the gather and
    scan_topk kernels beside their twins, their bounds and the library
    calls (``torch.index_select``; matmul + ``torch.topk``); the routed
-   /search_rerank p50 at B=1.
+   /search_rerank p50 at B=1.  A kernel is timed three ways: ``ms``,
+   back-to-back calls of its wrapper between two CUDA events (host and
+   device together); ``device_ms``, the same calls captured in a CUDA
+   graph and replayed (the device alone); ``host_us``, the host clock
+   over un-synchronised calls (the wrapper's host path alone).
 
 The last line is the JSON result; the line before it lists the kernels,
-the line before that the card.
+the line before that the card.  ``python3 chip_smoke.py --only
+gather_vs_twin,scan_topk_vs_twin`` runs the build and the named phases
+alone and prints no result.
 """
 
 from __future__ import annotations
@@ -349,41 +359,102 @@ class Smoke:
                 raise AssertionError("scan_topk indices differ beyond a near-tie")
         return int(diff.sum()), int(cancel.sum()), max_rel
 
-    def scan_topk_vs_twin(self):
-        """The scan_topk kernel (f32 and bf16 arms) against its twin."""
+    def _topk_case(self, q, x, k, metric, cd, vr, tally, arm=None):
+        """One scan_topk call against its twin; adds to ``tally``
+        [cases, differing slots, slots, cancelling slots, max rel]."""
         torch = self.torch
         from qrag_tpu_torch.ops import scan_topk as ts
+
+        got = ts.scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=cd, arm=arm)
+        torch.cuda.synchronize()
+        want = ts.plain_scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=cd)
+        nd, nc, mr = self._check_topk(got, want, q, x, metric, cd == torch.bfloat16)
+        tally[0] += 1
+        tally[1] += nd
+        tally[2] += q.shape[0] * k
+        tally[3] += nc
+        tally[4] = max(tally[4], mr)
+
+    def scan_topk_vs_twin(self):
+        """The scan_topk kernel (every arm, f32 and bf16 compute) against
+        its twin: the first form's grid of cases, then the shapes at
+        which the arms, tiles and buffers cut."""
+        torch = self.torch
+        from qrag_tpu_torch.ops.cuda import scan_topk as ct
 
         gen = torch.Generator(device=self.dev).manual_seed(1)
         x = torch.randn((100_000, 768), generator=gen, device=self.dev)
         x[7::1000] = x[3]  # planted duplicate rows: ties to the lower index
+        for r in (63, 64, 127, 128, 255, 256):  # and across every tile boundary
+            x[r] = x[3]
         valid = torch.rand(100_000, generator=gen, device=self.dev) > 0.1
-        n_cases, n_diff, n_slots, n_cancel, max_rel = 0, 0, 0, 0, 0.0
+        valid[2048:3072] = False  # whole tiles of every arm masked
+        both = (torch.float32, torch.bfloat16)
+        tally = [0, 0, 0, 0, 0.0]
+        ct.reset_launches()
         for b in (1, 7, 64, 1024):
             q = torch.randn((b, 768), generator=gen, device=self.dev)
             q[0] = x[3]
             for k in (1, 10, 100, 129, 1000):
                 for metric in ("l2", "ip"):
-                    for cd in (torch.float32, torch.bfloat16):
+                    for cd in both:
                         for vr in (None, valid):
-                            got = ts.scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=cd)
-                            torch.cuda.synchronize()
-                            want = ts.plain_scan_topk(q, x, k, metric, valid_rows=vr,
-                                                      compute_dtype=cd)
-                            nd, nc, mr = self._check_topk(got, want, q, x, metric,
-                                                          cd == torch.bfloat16)
-                            n_diff, n_cancel = n_diff + nd, n_cancel + nc
-                            max_rel = max(max_rel, mr)
-                            n_slots += b * k
-                            n_cases += 1
-        del x, valid
+                            self._topk_case(q, x, k, metric, cd, vr, tally)
+        # B on both sides of the arms' cuts (bf16: stream <= 8 < wgmma64
+        # <= 64 < wgmma128; f32: stream <= 64 < tiled), the stream arm
+        # and the general arm forced past their cuts
+        for b in (8, 9, 33, 64, 65):
+            q = torch.randn((b, 768), generator=gen, device=self.dev)
+            q[0] = x[3]
+            for metric in ("l2", "ip"):
+                for cd in both:
+                    for vr in (None, valid):
+                        self._topk_case(q, x, 10, metric, cd, vr, tally)
+            if b in (9, 33):
+                for cd in both:
+                    for arm in ("stream", "general"):
+                        self._topk_case(q, x, 10, "l2", cd, valid, tally, arm=arm)
+        # k on both sides of every buffer and tile cut
+        for b, ks in ((1, (256, 257, 768, 769, 1024)), (7, (256, 257)),
+                      (1024, (24, 25, 64, 65))):
+            q = torch.randn((b, 768), generator=gen, device=self.dev)
+            q[0] = x[3]
+            for k in ks:
+                for cd in both:
+                    self._topk_case(q, x, k, "l2", cd, valid, tally)
+        q = torch.randn((200, 768), generator=gen, device=self.dev)
+        for k in (10, 50):  # fewer rows than one tile of any arm; k = N
+            for b in (1, 64, 200):
+                for cd in both:
+                    self._topk_case(q[:b], x[:50], k, "ip", cd, valid[:50], tally)
+        del x
+        # rows that are not 16-byte aligned (d = 13) and a depth that is
+        # no multiple of a tile's (d = 100); N no multiple of any tile
+        for d in (100, 13):
+            x = torch.randn((5000, d), generator=gen, device=self.dev)
+            x[255], x[256] = x[3], x[3]
+            for b in (1, 7, 9, 64, 200):
+                q = torch.randn((b, d), generator=gen, device=self.dev)
+                q[0] = x[3]
+                for k in (10, 100):
+                    for metric in ("l2", "ip"):
+                        for cd in both:
+                            self._topk_case(q, x, k, metric, cd, valid[:5000], tally)
+        del valid
         self._free()
-        print(f"kernel vs twin scan_topk: {n_cases} cases ok (N=100000 d=768, B=1,7,64,1024, "
-              f"k=1,10,100,129,1000, l2+ip, f32+bf16, valid_rows or not, planted "
-              f"duplicates); values within rtol 1e-5 (max {max_rel:.3g}), except "
-              f"{n_cancel} cancelling slots within 1e-5 * (1 + |q|^2 + |x|^2); "
-              f"{n_diff} of {n_slots} index slots differ, all at near-ties (within "
-              f"1e-5 * (1 + |q|^2 + |x|^2))")
+        arms = dict(ct.arm_launches)
+        if min(arms.values()) < 1:
+            raise AssertionError(f"scan_topk: an arm was never reached: {arms}")
+        n_cases, n_diff, n_slots, n_cancel, max_rel = tally
+        print(f"kernel vs twin scan_topk: {n_cases} cases ok, launches by arm {arms} "
+              f"(N=100000 d=768: B=1,7,64,1024 x k=1,10,100,129,1000 x l2+ip x f32+bf16 x "
+              f"valid_rows or not; B=8,9,33,64,65 at k=10, the stream and general arms forced at B=9,33; "
+              f"k=256,257,768,769,1024 at B=1, 256,257 at B=7, 24,25,64,65 at B=1024; "
+              f"N=50 at k=10,50; N=5000 d=100,13 at B=1,7,9,64,200; planted duplicates "
+              f"across tile boundaries, whole tiles masked); values within rtol 1e-5 "
+              f"(max {max_rel:.3g}), except {n_cancel} cancelling slots within "
+              f"1e-5 * (1 + |q|^2 + |x|^2); {n_diff} of {n_slots} index slots differ, "
+              f"all at near-ties (within 1e-5 * (1 + |q|^2 + |x|^2))")
 
     # -------------------------------------------------------------- phase 4
 
@@ -1071,7 +1142,45 @@ class Smoke:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def _kernel_row(self, key, b, n, d, pairs, err, gemm_ms):
+    def _graph_ms(self, fn, reps, replays=3):
+        """Device time of one ``fn()`` with the host out of the picture:
+        ``reps`` calls captured in a CUDA graph on a side stream (the
+        wrappers launch on PyTorch's current stream), replays timed
+        with events."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(replays):
+            graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / (reps * replays)
+        del graph
+        return ms
+
+    def _host_us(self, fn, calls):
+        """Host cost of one ``fn()``: the host clock over ``calls``
+        un-synchronised calls after a synchronise."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        return us
+
+    def _kernel_row(self, key, b, n, d, pairs, err, gemm_ms, kernel):
         """One ``kernels`` entry: times measured here, the bound from
         this run's shapes (each input read once, each output written
         once; operations over the card's peak for their type)."""
@@ -1089,6 +1198,8 @@ class Smoke:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": err,
             "gemm_floor_ms": gemm_ms,
+            "device_ms": self._graph_ms(kernel, 5),
+            "host_us": self._host_us(kernel, 50 if b > 1 else 200),
         }
         print(f"kernel row {key} B={b} N={n} d={d} [{self.card}]: {row}", flush=True)
 
@@ -1118,15 +1229,15 @@ class Smoke:
             for planes in (1, 2, 3):
                 twin = _float_twin(planes)
                 err = self._compare(qb, scan, 2.0, ra, ca, planes, dyadic=False)[0]
-                pairs = self._time_pairs(
-                    lambda: twin(qb, scan, lr, ra, ca, 2.0),
-                    lambda: fused_scan.packed_window_scan(qb, scan, lr, ra, ca, 2.0, planes),
-                )
+                def kernel(planes=planes):
+                    return fused_scan.packed_window_scan(qb, scan, lr, ra, ca, 2.0, planes)
+
+                pairs = self._time_pairs(lambda: twin(qb, scan, lr, ra, ca, 2.0), kernel)
                 print(f"timing [{self.card}]: scan kernel bf16 B={b} N={n} d={d} "
                       f"planes={planes}: kernel {np.median([k for _, k in pairs]):.4f} ms, "
                       f"plain twin {np.median([p for p, _ in pairs]):.4f} ms (runs {pairs}); "
                       f"torch.matmul bf16 GEMM alone {gemm_ms:.4f} ms; max |hi err| {err:.3g}")
-                self._kernel_row(("bf16", planes), b, n, d, pairs, err, gemm_ms)
+                self._kernel_row(("bf16", planes), b, n, d, pairs, err, gemm_ms, kernel)
 
         self.census(engine.index, unit, "bf16")
         self.search_timings(engine.index, unit, "default bf16")
@@ -1210,14 +1321,15 @@ class Smoke:
                 ref = twin()
                 if not all(torch.equal(g, r) for g, r in zip(got, ref)):
                     raise AssertionError(f"int8 planes={planes} B={b}: kernel != twin")
-                pairs = self._time_pairs(
-                    twin, lambda: fused_scan.packed_window_scan(q8, q8x, lr, planes=planes)
-                )
+                def kernel(planes=planes):
+                    return fused_scan.packed_window_scan(q8, q8x, lr, planes=planes)
+
+                pairs = self._time_pairs(twin, kernel)
                 print(f"timing [{self.card}]: scan kernel int8 B={b} N={n} d={d} "
                       f"planes={planes}: kernel {np.median([k for _, k in pairs]):.4f} ms, "
                       f"plain twin {np.median([p for p, _ in pairs]):.4f} ms (runs {pairs}); "
                       f"torch._int_mm GEMM alone {gemm_ms:.4f} ms; planes bit-equal", flush=True)
-                self._kernel_row(("int8", planes), b, n, d, pairs, 0.0, gemm_ms)
+                self._kernel_row(("int8", planes), b, n, d, pairs, 0.0, gemm_ms, kernel)
 
     def gather_timings(self, snap):
         """The gather kernel on the engine's f32 store (1,250,176 x 768)
@@ -1233,7 +1345,13 @@ class Smoke:
                 raise AssertionError(f"gather M={m}: kernel != twin")
             pairs = self._time_pairs(lambda: tg.plain_gather_rows(x, idx),
                                      lambda: tg.gather_rows(x, idx))
-            lib_ms = self._events_ms(lambda: torch.index_select(x, 0, idx), 20)
+            def kernel():
+                return tg.gather_rows(x, idx)
+
+            def library():
+                return torch.index_select(x, 0, idx)
+
+            lib_ms = self._events_ms(library, 20)
             t_bytes = 2 * m * x.shape[1] * x.element_size() / HBM_BYTES_S
             row = {
                 "ms": float(np.median([k for _, k in pairs])),
@@ -1242,20 +1360,48 @@ class Smoke:
                 "bound_by": "bytes",
                 "max_abs_err": 0.0,
                 "library_ms": lib_ms,
+                "device_ms": self._graph_ms(kernel, 20),
+                "host_us": self._host_us(kernel, 300),
+                "library_device_ms": self._graph_ms(library, 20),
+                "library_host_us": self._host_us(library, 300),
             }
             self.kernel_rows[("gather_rows", m)] = row
             print(f"timing [{self.card}]: gather_rows f32 M={m} d={x.shape[1]} from "
                   f"N={x.shape[0]}: {row} (runs {pairs})", flush=True)
 
+    def _kernel_split(self, fn):
+        """Device time of one ``fn()`` by kernel name (torch.profiler):
+        the scan_topk partial kernel and the merge kernel apart."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if "scan_topk_" in ev.key:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                name = ev.key.split("scan_topk_")[1].split("_kernel")[0]
+                out[name] = out.get(name, 0.0) + us / 1e3
+        return out or "not measured (the profiler saw no device time)"
+
     def scan_topk_timings(self, snap, unit):
-        """The scan_topk kernel (both arms) on the engine's f32 store and
-        real queries, beside its twin, a matmul + torch.topk composite
-        and the bound."""
+        """The scan_topk kernel (both compute types) on the engine's f32
+        store and real queries, beside its twin, a matmul + torch.topk
+        composite and the bound; then the stream arm against the arm
+        that takes over past its cut."""
         torch = self.torch
         from qrag_tpu_torch.ops import scan_topk as ts
+        from qrag_tpu_torch.ops.cuda import scan_topk as ct
 
         x, sq, valid = snap.matrix, snap.sqnorms, snap.valid
         n, d = x.shape
+        ct.reset_launches()
         for b, k in ((1024, 10), (1, 100)):
             q = torch.from_numpy(unit(b)).to(self.dev)
             qsq = (q * q).sum(1)
@@ -1265,9 +1411,19 @@ class Smoke:
                 return torch.topk(torch.where(valid[None, :], g, -torch.inf), k)
 
             comp_ms = self._events_ms(composite, 5)
+            comp_device_ms = self._graph_ms(composite, 2, 2)
+            # the product alone, as the library computes it, per compute type
+            qb, xb = q.bfloat16(), x.bfloat16()
+            gemm_ms = {torch.float32: self._events_ms(lambda: q @ x.T, 5),
+                       torch.bfloat16: self._events_ms(lambda: qb @ xb.T, 5)}
+            del xb
             for cd in (torch.float32, torch.bfloat16):
                 bf16 = cd == torch.bfloat16
-                got = ts.scan_topk(q, x, k, "l2", sq, valid, cd)
+
+                def kernel():
+                    return ts.scan_topk(q, x, k, "l2", sq, valid, cd)
+
+                got = kernel()
                 want = ts.plain_scan_topk(q, x, k, "l2", sq, valid, cd)
                 n_diff = self._check_topk(got, want, q, x, "l2", bf16)[0]
                 fin = torch.isfinite(want[0])
@@ -1275,10 +1431,11 @@ class Smoke:
                 pairs = []
                 for _ in range(2):
                     p0 = self._events_ms(lambda: ts.plain_scan_topk(q, x, k, "l2", sq, valid, cd), 1)
-                    k_ms = self._events_ms(lambda: ts.scan_topk(q, x, k, "l2", sq, valid, cd), 5)
+                    k_ms = self._events_ms(kernel, 5 if b > 1 else 20)
                     pairs.append((p0, k_ms))
                 t_bytes = ((b + n) * d * 4 + (b + n) * 4 + n + b * k * 8) / HBM_BYTES_S
                 t_ops = 2 * b * n * d / (BF16_FLOPS_S if bf16 else FP32_FLOPS_S)
+                cfg = ct._config(b, n, k, d, bf16, True, 132)
                 row = {
                     "ms": float(np.median([kk for _, kk in pairs])),
                     "plain_ms": float(np.median([p for p, _ in pairs])),
@@ -1287,13 +1444,35 @@ class Smoke:
                     "max_abs_err": err,
                     "library_ms": None,
                     "library_composite_ms": comp_ms,
+                    "library_composite_device_ms": comp_device_ms,
+                    "gemm_floor_ms": gemm_ms[cd],
+                    "device_ms": self._graph_ms(kernel, 3 if b > 1 else 10),
+                    # few calls: the launch queue must not fill, or the
+                    # host clock waits for the device
+                    "host_us": self._host_us(kernel, 10 if b > 1 else 30),
+                    "arm": cfg.arm,
+                    # what the arm reads of the store: once per query tile
+                    "store_passes": -(-b // cfg.qt),
+                    "kernels_ms": self._kernel_split(kernel),
                 }
                 self.kernel_rows[("scan_topk", str(cd).split(".")[-1], b)] = row
                 print(f"timing [{self.card}]: scan_topk {cd} l2 B={b} k={k} N={n} d={d}: {row} "
                       f"(runs {pairs}; matmul + torch.topk composite {comp_ms:.4f} ms; "
-                      f"index slots differing at near-ties {n_diff})", flush=True)
+                      f"index slots differing at near-ties {n_diff}; config {cfg})", flush=True)
+        self.scan_topk_launches = (dict(ct.launches), dict(ct.arm_launches))
+        print(f"scan_topk timing launches: {self.scan_topk_launches}")
+        # the cut of the stream arm: it reads the store once per 8 queries
+        for b, others in ((8, ("wgmma64",)), (16, ("wgmma64",)), (16, ("general",)),
+                          (32, ("general", "tiled")), (64, ("general", "tiled")),
+                          (128, ("wgmma128",)), (1024, ("wgmma128",))):
+            q = torch.from_numpy(unit(b)).to(self.dev)
+            cd = torch.bfloat16 if others[0].startswith("wgmma") else torch.float32
+            t = {arm: self._graph_ms(lambda: ts.scan_topk(q, x, 10, "l2", sq, valid, cd,
+                                                          arm=arm), 3)
+                 for arm in (("stream",) if b <= 64 else ("wgmma64",)) + others}
+            print(f"timing [{self.card}]: scan_topk {cd} l2 B={b} k=10 by arm "
+                  f"(graph replay): {t}", flush=True)
         self._free()
-
 
 
 def _check_exact(idx, vals, oi, ov, g, atol):
@@ -1440,6 +1619,13 @@ def main() -> int:
     smoke = Smoke(torch)
     smoke.host()
     smoke.build()
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        # a partial run while working on a kernel, e.g.
+        # --only gather_vs_twin,scan_topk_vs_twin; it prints no result
+        for name in sys.argv[2].split(","):
+            getattr(smoke, name)()
+        print(f"partial run ({sys.argv[2]}): {time.perf_counter() - t0:.1f} s")
+        return 0
     smoke.kernel_vs_twin()
     smoke.int8_vs_twin()
     smoke.gather_vs_twin()
@@ -1467,7 +1653,11 @@ def main() -> int:
             # given as a floor beside it
             "library_ms": None,
             "gemm_floor_ms": row["gemm_floor_ms"],
+            "device_ms": row["device_ms"],
+            "host_us": row["host_us"],
         })
+    gather_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "device_ms", "host_us", "library_device_ms", "library_host_us")
     row = smoke.kernel_rows[("gather_rows", 6400)]  # the routed path's B=64 x C=100
     kernels.append({
         "name": "gather_rows f32 M=6400 d=768",
@@ -1476,21 +1666,28 @@ def main() -> int:
         "replaces": "qrag_tpu/ops/pallas/gather_rows.py:34 (_gather_kernel), "
                     "qrag_tpu/ops/pallas/gather_rows.py:131 (_gather_bs_kernel)",
         "launches": launches["gather_rows"],
-        **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
+        **{key: row[key] for key in gather_keys},
+        "other_shapes": {
+            f"M={m}": {key: smoke.kernel_rows[("gather_rows", m)][key] for key in gather_keys}
+            for m in (100, 102400)
+        },
     })
-    for arm in ("float32", "bfloat16"):
-        row = smoke.kernel_rows[("scan_topk", arm, 1024)]
-        kernels.append({
-            "name": f"scan_topk {arm} l2 B=1024 k=10",
-            "route": "cuda",
-            "source": "qrag_tpu_torch/csrc/scan_topk.cu",
-            "replaces": "qrag_tpu/ops/pallas/scan_topk.py:74 (_scan_topk_kernel)",
-            # 0 expected: like the reference's, on no dispatched path
-            "launches": launches[("scan_topk", arm)],
-            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms", "library_composite_ms")},
-        })
+    for b, k in ((1024, 10), (1, 100)):
+        for arm in ("float32", "bfloat16"):
+            row = smoke.kernel_rows[("scan_topk", arm, b)]
+            kernels.append({
+                "name": f"scan_topk {arm} l2 B={b} k={k} ({row['arm']} arm)",
+                "route": "cuda",
+                "source": "qrag_tpu_torch/csrc/scan_topk.cu",
+                "replaces": "qrag_tpu/ops/pallas/scan_topk.py:74 (_scan_topk_kernel)",
+                # 0 expected: like the reference's, on no dispatched path
+                "launches": launches[("scan_topk", arm)],
+                "timing_launches": smoke.scan_topk_launches[1][row["arm"]],
+                **{key: row[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_composite_ms", "library_composite_device_ms", "gemm_floor_ms",
+                    "device_ms", "host_us", "store_passes", "kernels_ms")},
+            })
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smoke.card)
     print(json.dumps({"kernels": kernels}))

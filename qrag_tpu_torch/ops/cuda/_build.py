@@ -125,7 +125,7 @@ def bind(path: Path) -> ctypes.CDLL:
         g.restype = I
     if hasattr(lib, "qrag_scan_topk"):
         s = lib.qrag_scan_topk
-        s.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, I, I, L, P, P, P, P, P]
+        s.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, I, I, I, I, L, P, P, P, P, P, P]
         s.restype = I
     return lib
 

@@ -21,24 +21,21 @@ show that its main path went through the kernel.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Tuple
 
 import torch
 
+from qrag_tpu_torch.ops.cuda import _launch
 from qrag_tpu_torch.ops.window_scan import WINDOW
 
 launches = {
     ("bf16", 1): 0, ("bf16", 2): 0, ("bf16", 3): 0,
     ("int8", 1): 0, ("int8", 2): 0,
 }
-_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    with _launch_lock:
-        for key in launches:
-            launches[key] = 0
+    _launch.reset(launches)
 
 
 def packed_window_scan(
@@ -85,10 +82,10 @@ def packed_window_scan(
             else bounded_topk.packed_window_scan_top2
         )
         return twin(queries, corpus, lane_rank, row_add, col_add, alpha)
-    return _launch(queries, corpus, row_add, col_add, alpha, planes, int_domain)
+    return _launch_kernel(queries, corpus, row_add, col_add, alpha, planes, int_domain)
 
 
-def _launch(queries, corpus, row_add, col_add, alpha, planes, int_domain):
+def _launch_kernel(queries, corpus, row_add, col_add, alpha, planes, int_domain):
     b, d = queries.shape
     n = corpus.shape[0]
     dev = corpus.device
@@ -119,29 +116,22 @@ def _launch(queries, corpus, row_add, col_add, alpha, planes, int_domain):
         torch.empty((b, nw), dtype=torch.int32, device=dev)
         for _ in range(planes)
     ]
-    from qrag_tpu_torch.ops.cuda._build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if int_domain:
-            err = lib.qrag_packed_window_scan_int8(
-                queries.data_ptr(), corpus.data_ptr(), b, nw, d, planes,
-                outs[0].data_ptr(), outs[-1].data_ptr(), stream,
-            )
-        else:
-            ra = _affine(row_add, n, dev, "row_add")
-            ca = _affine(col_add, b, dev, "col_add")
-            err = lib.qrag_packed_window_scan(
-                queries.data_ptr(), corpus.data_ptr(), ra.data_ptr(),
-                ca.data_ptr(), b, nw, d, float(alpha), planes,
-                outs[0].data_ptr(), outs[min(1, planes - 1)].data_ptr(),
-                outs[-1].data_ptr(), stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"packed_window_scan kernel launch failed: cudaError {err}")
-    with _launch_lock:
-        launches[("int8" if int_domain else "bf16", planes)] += 1
+    if int_domain:
+        _launch.launch(
+            "qrag_packed_window_scan_int8", dev, launches, ("int8", planes),
+            queries.data_ptr(), corpus.data_ptr(), b, nw, d, planes,
+            outs[0].data_ptr(), outs[-1].data_ptr(),
+        )
+    else:
+        ra = _affine(row_add, n, dev, "row_add")
+        ca = _affine(col_add, b, dev, "col_add")
+        _launch.launch(
+            "qrag_packed_window_scan", dev, launches, ("bf16", planes),
+            queries.data_ptr(), corpus.data_ptr(), ra.data_ptr(),
+            ca.data_ptr(), b, nw, d, float(alpha), planes,
+            outs[0].data_ptr(), outs[min(1, planes - 1)].data_ptr(),
+            outs[-1].data_ptr(),
+        )
     return tuple(outs)
 
 

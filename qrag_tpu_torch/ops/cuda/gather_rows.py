@@ -7,29 +7,33 @@
 device and the plain twin live in ``qrag_tpu_torch.ops.gather_rows``.
 
 ``launches`` counts kernel launches, so a run can show that its path
-went through the kernel.
+went through the kernel.  The launch itself goes through
+``_launch.launch``, the path shared by the three kernel wrappers.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
-launches = 0
-_launch_lock = threading.Lock()
+from qrag_tpu_torch.ops.cuda import _launch
+
+_counts = {"gather_rows": 0}
+_INDEX_TYPES = (torch.int32, torch.int64)
+
+
+def __getattr__(name: str):
+    if name == "launches":  # read as ``gather_rows.launches``
+        return _counts["gather_rows"]
+    raise AttributeError(name)
 
 
 def reset_launches() -> None:
-    global launches
-    with _launch_lock:
-        launches = 0
+    _launch.reset(_counts)
 
 
 def gather_rows_cuda(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(M, d) = corpus[clamp(idx, 0, N-1)] for a contiguous 1-D int32 or
     int64 ``idx``, both on one CUDA device; raises otherwise."""
-    global launches
     dev = corpus.device
     if dev.type != "cuda" or idx.device != dev:
         raise ValueError(
@@ -41,7 +45,7 @@ def gather_rows_cuda(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             f"gather_rows kernel: corpus (N, d) and idx (M,), got "
             f"{tuple(corpus.shape)} and {tuple(idx.shape)}"
         )
-    if idx.dtype not in (torch.int32, torch.int64):
+    if idx.dtype not in _INDEX_TYPES:
         raise TypeError(f"gather_rows kernel: idx int32 or int64, got {idx.dtype}")
     if not (corpus.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_rows kernel needs contiguous inputs")
@@ -52,17 +56,9 @@ def gather_rows_cuda(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     if n == 0:
         raise ValueError("gather_rows: no rows to gather from (N = 0)")
-    from qrag_tpu_torch.ops.cuda._build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.qrag_gather_rows(
-            corpus.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
-            m, n, d * corpus.element_size(), out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: cudaError {err}")
-    with _launch_lock:
-        launches += 1
+    _launch.launch(
+        "qrag_gather_rows", dev, _counts, "gather_rows",
+        corpus.data_ptr(), idx.data_ptr(), idx.dtype == torch.int64, m, n,
+        d * corpus.element_size(), out.data_ptr(),
+    )
     return out

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+_kernel = None  # ops.cuda.gather_rows.gather_rows_cuda, bound at first use
+
 
 def plain_gather_rows(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The plain twin: (M, d) rows of ``corpus`` at the clamped 1-D
@@ -34,9 +36,12 @@ def gather_rows(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_rows: 1-D idx, got {tuple(idx.shape)}")
     if corpus.device.type == "cpu" and idx.device.type == "cpu":
         return plain_gather_rows(corpus, idx)
-    from qrag_tpu_torch.ops.cuda.gather_rows import gather_rows_cuda
+    global _kernel
+    if _kernel is None:
+        from qrag_tpu_torch.ops.cuda.gather_rows import gather_rows_cuda
 
-    return gather_rows_cuda(corpus, idx.contiguous())
+        _kernel = gather_rows_cuda
+    return _kernel(corpus, idx if idx.is_contiguous() else idx.contiguous())
 
 
 def gather_rows_2d(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -209,7 +209,7 @@ def test_port_imports_no_jax():
         "new = {'documents', 'reranker', 'reranker.classical', 'reranker.quantum',\n"
         "       'reranker.controller', 'serving.batcher', 'serving.app',\n"
         "       'ops.gather_rows', 'ops.scan_topk', 'ops.cuda.gather_rows',\n"
-        "       'ops.cuda.scan_topk'}\n"
+        "       'ops.cuda.scan_topk', 'ops.cuda._launch', 'ops.cuda.launch_ab'}\n"
         "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'qrag_tpu' or m.startswith('qrag_tpu.')]\n"

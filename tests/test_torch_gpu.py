@@ -1,6 +1,7 @@
-"""GPU-only checks of the Hopper packed window-scan kernel (float and
-int8 arms) against its plain twins (marked ``gpu``; they skip without a
-CUDA device).  This file
+"""GPU-only checks of the Hopper kernels (the packed window scan's float
+and int8 arms, the row gather, every arm of scan_topk) against their
+plain twins, and of the shared launch path (marked ``gpu``; they skip
+without a CUDA device).  This file
 imports no jax, so it runs on the GPU host, which has none:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -181,15 +182,132 @@ def test_gpu_build_failure_raises(cuda, tmp_path, monkeypatch):
     plain twin or a library call."""
     from qrag_tpu_torch.ops import gather_rows as tg
     from qrag_tpu_torch.ops import scan_topk as ts
-    from qrag_tpu_torch.ops.cuda import _build
+    from qrag_tpu_torch.ops.cuda import _build, _launch
 
     (tmp_path / "csrc").mkdir()
     (tmp_path / "csrc" / "broken.cu").write_text("this is not CUDA C++\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_launch, "_fns", {})  # the entry points bound so far
     x = torch.randn((300, 16), device=cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tg.gather_rows(x, torch.arange(4, device=cuda))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         ts.scan_topk(x[:2], x, 3)
+
+
+def _topk_close(got, want, q, x, metric, bf16):
+    """The summation-order tolerance of ``chip_smoke.py`` (_check_topk):
+    values within rtol 1e-5, or 1e-5 of the terms' scale where the score
+    cancels; indices equal except at near-ties within that scale."""
+    (kv, ki), (pv, pi) = got, want
+    fin = torch.isfinite(pv)
+    assert torch.equal(fin, torch.isfinite(kv)) and torch.equal(ki < 0, pi < 0)
+    qsq = (q.double() ** 2).sum(1)
+    b, t = torch.nonzero(fin, as_tuple=True)
+    scale = 1.0 + qsq[b] + (x[pi[b, t].long()].double() ** 2).sum(1)
+    ref = pv[b, t].double().abs()
+    err = (kv[b, t].double() - pv[b, t].double()).abs()
+    cancel = ref < 1e-2 * scale
+    assert not bool(torch.where(cancel, err > 1e-5 * scale, err > 1e-5 * ref).any())
+    b, t = torch.nonzero(ki != pi, as_tuple=True)
+    rows = ki[b, t].long()
+    qq, xx = q[b], x[rows]
+    if bf16:
+        qq, xx = qq.bfloat16(), xx.bfloat16()
+    g = (qq.double() * xx.double()).sum(1)
+    xsq = (x[rows].double() ** 2).sum(1)
+    if metric == "l2":
+        g = qsq[b] + xsq - 2 * g
+    assert bool(((g - pv[b, t].double()).abs() <= 1e-5 * (1 + qsq[b] + xsq)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,n,d,k",
+    [
+        (8, 20000, 768, 10), (9, 20000, 768, 10),  # bf16: stream | wgmma64
+        (16, 20000, 768, 10), (33, 20000, 768, 10),
+        (64, 20000, 768, 10), (65, 20000, 768, 10),  # stream | tiled, wgmma64 | wgmma128
+        (1, 20000, 768, 256), (1, 20000, 768, 257),  # the stream buffers
+        (1, 20000, 768, 768), (1, 20000, 768, 769), (1, 20000, 768, 1024),
+        (200, 20000, 768, 24), (200, 20000, 768, 25),  # the tiled buffers
+        (200, 20000, 768, 64), (200, 20000, 768, 65),  # past the tiles: general
+        (1, 5000, 100, 100), (200, 5000, 100, 10),  # a depth that is no tile multiple
+        (1, 5000, 13, 100), (7, 5000, 13, 10), (200, 5000, 13, 10),  # unaligned rows
+        (1, 50, 768, 50), (200, 50, 768, 10),  # fewer rows than one tile
+    ],
+)
+def test_gpu_scan_topk_arms_match_twin(cuda, compute_dtype, b, n, d, k):
+    """Every arm at the shapes its tiles and buffers cut at, random
+    inputs with planted duplicates across tile boundaries and a whole
+    tile masked, under the summation-order tolerance."""
+    from qrag_tpu_torch.ops import scan_topk as ts
+    from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+    g = torch.Generator(device=cuda).manual_seed(b * 1000 + k + d)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    for r in (7, 63, 64, 127, 128, 255, 256):
+        if r < n:
+            x[r] = x[3]
+    valid = torch.rand(n, generator=g, device=cuda) > 0.1
+    valid[1024:2048] = False
+    q = torch.randn((b, d), generator=g, device=cuda)
+    q[0] = x[3]
+    want_arm = ct._config(b, n, k, d, compute_dtype == torch.bfloat16, d % 4 == 0, 132).arm
+    for metric in ("l2", "ip"):
+        for vr in (None, valid):
+            before = ct.arm_launches[want_arm]
+            got = ts.scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=compute_dtype)
+            torch.cuda.synchronize()
+            assert ct.arm_launches[want_arm] == before + 1
+            want = ts.plain_scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=compute_dtype)
+            _topk_close(got, want, q, x, metric, compute_dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_gpu_gather_under_cuda_graph(cuda):
+    """The wrapper launches on PyTorch's current stream, so a CUDA graph
+    captures it; replays follow the index tensor's contents."""
+    from qrag_tpu_torch.ops import gather_rows as tg
+
+    x = torch.randn((3000, 768), device=cuda)
+    idx = torch.randint(0, 3000, (100,), device=cuda)
+    tg.gather_rows(x, idx)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        out = tg.gather_rows(x, idx)
+    for seed in (1, 2):
+        idx.copy_(torch.randint(0, 3000, (100,), device=cuda,
+                                generator=torch.Generator(device=cuda).manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, x[idx])
+
+
+@pytest.mark.gpu
+def test_gpu_launch_counter_exact_under_threads(cuda):
+    import threading
+
+    from qrag_tpu_torch.ops import gather_rows as tg
+    from qrag_tpu_torch.ops.cuda import gather_rows as cg
+
+    x = torch.randn((3000, 64), device=cuda)
+    idx = torch.randint(0, 3000, (100,), device=cuda)
+    tg.gather_rows(x, idx)  # the build and the first bind, outside the count
+    before = cg.launches
+
+    def work():
+        for _ in range(100):
+            tg.gather_rows(x, idx)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert cg.launches == before + 800
