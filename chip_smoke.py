@@ -359,13 +359,27 @@ class Smoke:
                 raise AssertionError("scan_topk indices differ beyond a near-tie")
         return int(diff.sum()), int(cancel.sum()), max_rel
 
+    def _scan_topk_arm(self, q, x, k, metric, sq, vr, cd, arm):
+        """scan_topk with one arm of the kernel forced: the entry
+        point's own steps around the CUDA wrapper, which alone takes an
+        arm."""
+        from qrag_tpu_torch.ops import scan_topk as ts
+        from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+        ops = ts._prepare(q, x, k, metric, sq, vr, cd)
+        vals, idx = ct.scan_topk_cuda(*ops, k, metric == "l2", cd == self.torch.bfloat16, arm)
+        return ts._finalize(vals, idx, metric)
+
     def _topk_case(self, q, x, k, metric, cd, vr, tally, arm=None):
         """One scan_topk call against its twin; adds to ``tally``
         [cases, differing slots, slots, cancelling slots, max rel]."""
         torch = self.torch
         from qrag_tpu_torch.ops import scan_topk as ts
 
-        got = ts.scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=cd, arm=arm)
+        if arm is None:
+            got = ts.scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=cd)
+        else:
+            got = self._scan_topk_arm(q, x, k, metric, None, vr, cd, arm)
         torch.cuda.synchronize()
         want = ts.plain_scan_topk(q, x, k, metric, valid_rows=vr, compute_dtype=cd)
         nd, nc, mr = self._check_topk(got, want, q, x, metric, cd == torch.bfloat16)
@@ -1388,7 +1402,11 @@ class Smoke:
                     us = ev.cuda_time_total
                 name = ev.key.split("scan_topk_")[1].split("_kernel")[0]
                 out[name] = out.get(name, 0.0) + us / 1e3
-        return out or "not measured (the profiler saw no device time)"
+        if len(out) < 2 or "merge" not in out or min(out.values()) <= 0.0:
+            raise AssertionError(
+                f"scan_topk: the profiler did not time the partial and the merge kernel: {out}"
+            )
+        return out
 
     def scan_topk_timings(self, snap, unit):
         """The scan_topk kernel (both compute types) on the engine's f32
@@ -1420,7 +1438,11 @@ class Smoke:
             for cd in (torch.float32, torch.bfloat16):
                 bf16 = cd == torch.bfloat16
 
+                calls = [0]
+                arms_before, types_before = dict(ct.arm_launches), dict(ct.launches)
+
                 def kernel():
+                    calls[0] += 1
                     return ts.scan_topk(q, x, k, "l2", sq, valid, cd)
 
                 got = kernel()
@@ -1435,7 +1457,6 @@ class Smoke:
                     pairs.append((p0, k_ms))
                 t_bytes = ((b + n) * d * 4 + (b + n) * 4 + n + b * k * 8) / HBM_BYTES_S
                 t_ops = 2 * b * n * d / (BF16_FLOPS_S if bf16 else FP32_FLOPS_S)
-                cfg = ct._config(b, n, k, d, bf16, True, 132)
                 row = {
                     "ms": float(np.median([kk for _, kk in pairs])),
                     "plain_ms": float(np.median([p for p, _ in pairs])),
@@ -1450,26 +1471,48 @@ class Smoke:
                     # few calls: the launch queue must not fill, or the
                     # host clock waits for the device
                     "host_us": self._host_us(kernel, 10 if b > 1 else 30),
-                    "arm": cfg.arm,
-                    # what the arm reads of the store: once per query tile
-                    "store_passes": -(-b // cfg.qt),
                     "kernels_ms": self._kernel_split(kernel),
                 }
-                self.kernel_rows[("scan_topk", str(cd).split(".")[-1], b)] = row
+                # the arm that ran, from the wrapper's own counts: one
+                # arm, once for every call made above (a graph's replays
+                # are no calls of the wrapper), all of this compute type
+                ran = {a: c - arms_before[a] for a, c in ct.arm_launches.items()
+                       if c != arms_before[a]}
+                name = str(cd).split(".")[-1]
+                rose = {t: c - types_before[t] for t, c in ct.launches.items()}
+                other = "float32" if bf16 else "bfloat16"
+                if len(ran) != 1 or rose != {name: calls[0], other: 0} or (
+                    list(ran.values()) != [calls[0]]
+                ):
+                    raise AssertionError(
+                        f"scan_topk B={b} {cd}: {calls[0]} calls, launches by arm {ran}, "
+                        f"by compute type {rose}"
+                    )
+                (row["arm"],) = ran
+                row["timing_launches"] = calls[0]
+                cfg = ct.plan(q, x, k, bf16)  # the wrapper's own choice for these operands
+                if cfg.arm != row["arm"]:
+                    raise AssertionError(f"scan_topk: plan() names {cfg.arm}, {row['arm']} ran")
+                self.kernel_rows[("scan_topk", name, b)] = row
+                # what the arm reads of the store: once per query tile
                 print(f"timing [{self.card}]: scan_topk {cd} l2 B={b} k={k} N={n} d={d}: {row} "
                       f"(runs {pairs}; matmul + torch.topk composite {comp_ms:.4f} ms; "
-                      f"index slots differing at near-ties {n_diff}; config {cfg})", flush=True)
-        self.scan_topk_launches = (dict(ct.launches), dict(ct.arm_launches))
-        print(f"scan_topk timing launches: {self.scan_topk_launches}")
+                      f"index slots differing at near-ties {n_diff}; config {cfg}, "
+                      f"store passes {-(-b // cfg.qt)})", flush=True)
         # the cut of the stream arm: it reads the store once per 8 queries
-        for b, others in ((8, ("wgmma64",)), (16, ("wgmma64",)), (16, ("general",)),
-                          (32, ("general", "tiled")), (64, ("general", "tiled")),
+        # and the two wgmma arms against each other on both sides of theirs
+        for b, others in ((8, ("wgmma64",)), (16, ("wgmma64", "wgmma128")), (16, ("general",)),
+                          (32, ("general", "tiled")), (32, ("wgmma64", "wgmma128")),
+                          (64, ("general", "tiled")), (64, ("wgmma64", "wgmma128")),
                           (128, ("wgmma128",)), (1024, ("wgmma128",))):
             q = torch.from_numpy(unit(b)).to(self.dev)
             cd = torch.bfloat16 if others[0].startswith("wgmma") else torch.float32
-            t = {arm: self._graph_ms(lambda: ts.scan_topk(q, x, 10, "l2", sq, valid, cd,
-                                                          arm=arm), 3)
-                 for arm in (("stream",) if b <= 64 else ("wgmma64",)) + others}
+            first = ("stream",) if b <= 64 and "wgmma128" not in others else ()
+            if b > 64:
+                first = ("wgmma64",)
+            t = {arm: self._graph_ms(
+                     lambda: self._scan_topk_arm(q, x, 10, "l2", sq, valid, cd, arm), 3)
+                 for arm in first + others}
             print(f"timing [{self.card}]: scan_topk {cd} l2 B={b} k=10 by arm "
                   f"(graph replay): {t}", flush=True)
         self._free()
@@ -1682,11 +1725,10 @@ def main() -> int:
                 "replaces": "qrag_tpu/ops/pallas/scan_topk.py:74 (_scan_topk_kernel)",
                 # 0 expected: like the reference's, on no dispatched path
                 "launches": launches[("scan_topk", arm)],
-                "timing_launches": smoke.scan_topk_launches[1][row["arm"]],
                 **{key: row[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_composite_ms", "library_composite_device_ms", "gemm_floor_ms",
-                    "device_ms", "host_us", "store_passes", "kernels_ms")},
+                    "device_ms", "host_us", "timing_launches", "kernels_ms")},
             })
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smoke.card)

@@ -42,11 +42,10 @@ ARM_IDS = {"general": 0, "stream": 1, "tiled": 2, "wgmma64": 3, "wgmma128": 3}
 CHUNK = {"general": 64, "stream": 256, "tiled": 16, "wgmma64": 64, "wgmma128": 64}
 # rows of one tile of an arm: a split is a whole number of them
 TILE_ROWS = {"general": 64, "stream": 256, "tiled": 128, "wgmma64": 128, "wgmma128": 128}
-# the stream arm reads the store once per 8 queries: the largest B it
-# takes by default for f32 and for bf16 compute (past it the general,
-# tiled or wgmma arm is faster), and the largest B it can be forced to
+# the stream arm reads the store once per 8 queries: the largest B at
+# which it is picked for f32 and for bf16 compute (past it the general,
+# tiled or wgmma arm is faster)
 STREAM_MAX_B = {False: 64, True: 8}
-STREAM_LIMIT_B = 64
 # (arm, bf16 compute, query tile, load width in floats) that
 # csrc/scan_topk.cu instantiates
 INSTANCES = frozenset(
@@ -99,10 +98,7 @@ def _config(
     """The arm, tile, buffer and row split for a call; ``arm`` forces
     one (for measurements) and raises if it does not take the shapes."""
     vec = 4 if aligned else 1
-    choices = []
-    if b <= STREAM_LIMIT_B:
-        qt = 1 if b == 1 else 8
-        choices.append(("stream", qt, _buffer(k, CHUNK["stream"], 512)))
+    choices = [("stream", 1 if b == 1 else 8, _buffer(k, CHUNK["stream"], 512))]
     if bf16 and aligned and k <= 64:
         choices.append(("wgmma64", 64, 128))
         choices.append(("wgmma128", 128, 128))
@@ -143,6 +139,16 @@ def _config(
     return Config(arm, qt, vec, buf, -(-n // rows), rows)
 
 
+def plan(
+    q: torch.Tensor, x: torch.Tensor, k: int, bf16: bool, arm: Optional[str] = None
+) -> Config:
+    """The configuration ``scan_topk_cuda`` launches for these operands
+    on their card."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    aligned = q.shape[1] % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+    return _config(q.shape[0], x.shape[0], k, q.shape[1], bf16, aligned, sms, arm)
+
+
 def scan_topk_cuda(
     q: torch.Tensor,  # (B, d) f32
     qsq: torch.Tensor,  # (B,) f32
@@ -176,9 +182,7 @@ def scan_topk_cuda(
         raise ValueError(f"scan_topk kernel takes k <= {MAX_K}, got k={k}")
     if n >= 2**31:
         raise ValueError(f"scan_topk kernel indexes rows in int32, got N={n}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    aligned = d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
-    cfg = _config(b, n, k, d, bf16, aligned, sms, arm)
+    cfg = plan(q, x, k, bf16, arm)
     pv = torch.empty((cfg.splits, b, k), dtype=torch.float32, device=dev)
     pi = torch.empty((cfg.splits, b, k), dtype=torch.int32, device=dev)
     ov = torch.empty((b, k), dtype=torch.float32, device=dev)

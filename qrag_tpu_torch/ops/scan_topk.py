@@ -121,12 +121,9 @@ def scan_topk(
     corpus_sqnorms: Optional[torch.Tensor] = None,  # (N,)
     valid_rows: Optional[torch.Tensor] = None,  # (N,) bool
     compute_dtype: torch.dtype = torch.float32,
-    arm: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused scan + top-k: (B, k) scores (l2 distances ascending / ip
-    descending, invalid slots +inf / -inf) and int32 indices.  ``arm``
-    forces one arm of the CUDA kernel (``ops/cuda/scan_topk.py``), to
-    time it against another; the CPU path ignores it."""
+    descending, invalid slots +inf / -inf) and int32 indices."""
     q, qsq, x, xsq, valid = _prepare(
         queries, corpus, k, metric, corpus_sqnorms, valid_rows, compute_dtype
     )
@@ -136,5 +133,5 @@ def scan_topk(
     else:
         from qrag_tpu_torch.ops.cuda.scan_topk import scan_topk_cuda
 
-        vals, idx = scan_topk_cuda(q, qsq, x, xsq, valid, k, metric == "l2", bf16, arm)
+        vals, idx = scan_topk_cuda(q, qsq, x, xsq, valid, k, metric == "l2", bf16)
     return _finalize(vals, idx, metric)

@@ -256,7 +256,7 @@ def test_gpu_scan_topk_arms_match_twin(cuda, compute_dtype, b, n, d, k):
     valid[1024:2048] = False
     q = torch.randn((b, d), generator=g, device=cuda)
     q[0] = x[3]
-    want_arm = ct._config(b, n, k, d, compute_dtype == torch.bfloat16, d % 4 == 0, 132).arm
+    want_arm = ct.plan(q, x, k, compute_dtype == torch.bfloat16).arm
     for metric in ("l2", "ip"):
         for vr in (None, valid):
             before = ct.arm_launches[want_arm]

@@ -192,7 +192,9 @@ def test_scan_topk_config_forced_arm():
     assert ct._config(64, 100_000, 10, 768, True, True, 132, arm="stream").arm == "stream"
     assert ct._config(8, 100_000, 10, 768, False, True, 132, arm="general").qt == 16
     assert ct._config(8, 100_000, 10, 768, False, True, 132, arm="tiled").qt == 128
-    for bad in (dict(b=65, arm="stream"), dict(b=64, arm="wgmma64"), dict(b=64, k=65, arm="tiled")):
+    assert ct._config(65, 100_000, 10, 768, True, True, 132, arm="stream").qt == 8
+    # a depth past the arm's shared memory, the wrong compute type, k past the tile's buffer
+    for bad in (dict(d=60_000, arm="stream"), dict(arm="wgmma64"), dict(k=65, arm="tiled")):
         kw = dict(b=64, n=100_000, k=10, d=768, bf16=False, aligned=True, sms=132)
         kw.update(bad)
         with pytest.raises(ValueError):
