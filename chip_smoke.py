@@ -11,13 +11,17 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    IEEE-fp32 matmul settings the exact paths need;
 2. build: compiles ``qrag_tpu_torch/csrc/*.cu`` into
    ``build/qrag_tpu_torch/<hash>/``;
-3. kernel vs plain twin: the packed window-scan kernel's float arm
+3. kernel vs plain twin: the packed window-scan kernel's float domain
    (planes 1-3) against ``window_scan.packed_window_scan`` and
    ``bounded_topk.packed_window_scan_top2/top3`` — bit-equal planes on
-   dyadic inputs, the plane contract on random ones — and its int8 arm
-   (planes 1-2) against ``packed_window_scan`` /
+   dyadic inputs, the plane contract on random ones — and its int8
+   domain (planes 1-2) against ``packed_window_scan`` /
    ``packed_window_scan_top2_int``: bit-equal on every input, clipped
-   keys included; the row-gather kernel against ``plain_gather_rows``
+   keys included; both over B on either side of the cut between the
+   general and the wide arm, a ragged last query tile (B = 257, 1000)
+   and window pair (N = 4224), d = 64, 128, 768 (int8 also 16 and
+   8192), and with each arm forced on shapes both take and held against
+   the other; the row-gather kernel against ``plain_gather_rows``
    (bit-equal: f32, bf16 and int8 rows, d = 768 and 100, clamped
    indices); the scan_topk kernel (f32 and bf16 compute; the stream,
    wgmma (64 and 128 queries a block), tiled and general arms, each of
@@ -50,8 +54,13 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    composition (f32 exact top-100, gather, the fidelity or cosine
    expert, stable top-k; or the unbatched engine), with the gather
    kernel's launches counted;
-6. timings (no pass condition): kernel vs twin beside the bound and the
-   GEMM alone, index.search B=1024, certificate census; the gather and
+6. timings (no pass condition, but a timed row names the arm whose
+   launch count rose, a B=1024 search must launch the wide arm of the
+   scan and a B=1 search the general one): the scan kernels vs their
+   twins at B = 1, 64 and 1024 beside the bound and the GEMM alone
+   (``torch.matmul`` / ``torch._int_mm``), each arm forced at B = 1..256
+   (where they cut), index.search B=1024 with a ``torch.profiler``
+   breakdown, certificate census; the gather and
    scan_topk kernels beside their twins, their bounds and the library
    calls (``torch.index_select``; matmul + ``torch.topk``); the routed
    /search_rerank p50 at B=1.  A kernel is timed three ways: ``ms``,
@@ -71,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -127,9 +137,18 @@ class Smoke:
         t0 = time.perf_counter()
         _build.load_library()
         print(f"build: {time.perf_counter() - t0:.2f} s -> {_build.library_path()}")
-        for line in (_build.build_log or "").splitlines():
-            if "registers" in line or "spill" in line:
+        # registers and spills of every kernel, by name; and what ptxas
+        # says of the wgmma pipelines (C7517 and its kin: a wait it had
+        # to put in)
+        log = (_build.build_log or "").splitlines()
+        for line in log:
+            entry = re.search(r"Compiling entry function '\w*\d([a-z][a-z_0-9]*_kernel)(I\w+?EE)?", line)
+            if entry:
+                print("  ptxas:", entry.group(1), entry.group(2) or "")
+            elif any(word in line for word in ("registers", "spill", "wgmma", "warpgroup", "C75")):
                 print("  ptxas:", line.strip())
+        if log and not any("C75" in line or "warpgroup" in line for line in log):
+            print("  ptxas: no C75xx note (it put no wait into a wgmma pipeline)")
 
     # -------------------------------------------------------------- phase 3
 
@@ -153,73 +172,61 @@ class Smoke:
             ca = -(q.float() ** 2).sum(1, keepdim=True)
         return q, x, alpha, ra, ca
 
-    def _compare(self, q, x, alpha, ra, ca, planes, dyadic):
+    def _compare(self, q, x, alpha, ra, ca, planes, dyadic, arm=None):
         """Kernel vs plain twin.  Dyadic: bit-equal planes.  Random: the
-        plane contract — upper value bounds to rtol 1e-4 / atol 1e-3,
-        lanes equal where the trunc keys agree (up to truncated ties).
-        Returns (max |upper-bound difference|, keys equal, keys)."""
+        plane contract (``scan_ab.plane_contract``) — upper value bounds
+        to rtol 1e-4 / atol 1e-3, lanes equal where the trunc keys agree
+        (up to truncated ties).  ``arm`` forces one arm through the CUDA
+        wrapper.  Returns (max |upper-bound difference|, keys equal,
+        keys, the kernel's planes)."""
         torch = self.torch
-        from qrag_tpu_torch.ops import bounded_topk as bt
         from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.ops.cuda.scan_ab import plane_contract
         from qrag_tpu_torch.ops.window_scan import make_lane_rank
 
         lr = make_lane_rank(x.shape[0], self.dev)
-        got = fused_scan.packed_window_scan(q, x, lr, ra, ca, alpha, planes)
+        if arm is None:
+            got = fused_scan.packed_window_scan(q, x, lr, ra, ca, alpha, planes)
+        else:
+            got = fused_scan.packed_window_scan_cuda(q, x, ra, ca, alpha, planes, arm)
         torch.cuda.synchronize()
         ref = _float_twin(planes)(q, x, lr, ra, ca, alpha)
         torch.cuda.synchronize()
-        err, n_same, n_all = 0.0, 0, 0
-        for g_, r in zip(got, ref):
-            if dyadic:
-                if not torch.equal(g_, r):
-                    raise AssertionError("dyadic planes differ from the twin")
-                continue
-            _, hi_g = bt.plane_value_bounds(g_)
-            lo_r, hi_r = bt.plane_value_bounds(r)
-            if not torch.allclose(hi_g, hi_r, rtol=1e-4, atol=1e-3):
-                raise AssertionError("plane value bounds outside rtol 1e-4/atol 1e-3")
-            err = max(err, (hi_g - hi_r).abs().max().item())
-            same = (g_ & ~127) == (r & ~127)
-            n_same += int(same.sum())
-            n_all += same.numel()
-            self._check_lanes(q, x, alpha, ra, ca, g_, lo_r, hi_r, r, same)
-        return err, n_same, n_all
-
-    def _check_lanes(self, q, x, alpha, ra, ca, g_, lo_r, hi_r, r, same):
-        """Lanes agree wherever the trunc keys agree, except at a
-        truncated tie: two rows of one window within one quantum, where
-        accumulation drift picks either.  There the kernel's row must
-        score, re-evaluated in f32, inside the twin's value bounds
-        widened by the plane contract's tolerance."""
-        torch = self.torch
-
-        bad = same & ((g_ & 127) != (r & 127))
-        if not bool(bad.any()):
-            return
-        bi, wi = torch.nonzero(bad, as_tuple=True)
-        rows = wi * WINDOW + (127 - (g_[bi, wi] & 127))
-        s = alpha * (q[bi].float() * x[rows].float()).sum(1) + ra[0, rows]
-        if ca is not None:
-            s = s + ca[bi, 0]
-        lo, hi = lo_r[bi, wi], hi_r[bi, wi]
-        tol = 1e-4 * hi.abs() + 1e-3
-        if not bool(((s >= lo - tol) & (s <= hi + tol)).all()):
-            raise AssertionError("a lane differs where keys agree beyond a trunc tie")
-        self.lane_ties = getattr(self, "lane_ties", 0) + int(bad.sum())
+        if dyadic:
+            if not all(torch.equal(g_, r) for g_, r in zip(got, ref)):
+                raise AssertionError("dyadic planes differ from the twin")
+            return 0.0, 0, 0, got
+        err, n_same, n_all, ties = plane_contract(got, ref, q, x, alpha, ra, ca)
+        self.lane_ties = getattr(self, "lane_ties", 0) + ties
+        return err, n_same, n_all, got
 
     def kernel_vs_twin(self):
+        """The float domain against its twins: the first form's grid of
+        cases, B on both sides of the cut between the arms, a ragged
+        last query tile (257, 1000) and window pair (N=4224: 33
+        windows), d = 64, 128, 768; then each arm forced on shapes both
+        take and held against the twin and against the other."""
+        torch = self.torch
+        from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.ops.cuda.scan_ab import plane_contract
+
+        cut = fused_scan.WIDE_MIN_B[False]
+        fused_scan.reset_launches()
         n_cases = 0
         for n in (4096, 4224, CAP_1M):
-            for d in (128, 768):
+            small = n != CAP_1M
+            batches = sorted({1, 7, cut - 1, cut, 64, 128, 256, 257, 1000, 1024}) if small \
+                else (1, 7, 64, 257, 1024)
+            for d in (64, 128, 768) if small else (128, 768):
                 err, n_same, n_all = 0.0, 0, 0
-                for b in (1, 7, 64, 1024):
+                for b in batches:
                     for planes in (1, 2, 3):
                         for metric in ("ip", "l2"):
                             for dyadic in (True, False):
                                 inp = self._scan_inputs(
                                     b, n, d, metric, dyadic, seed=n + d + b
                                 )
-                                e, s_, a_ = self._compare(*inp, planes, dyadic)
+                                e, s_, a_, _ = self._compare(*inp, planes, dyadic)
                                 err, n_same, n_all = max(err, e), n_same + s_, n_all + a_
                                 n_cases += 1
                                 del inp
@@ -229,27 +236,50 @@ class Smoke:
                 # above are the binding check, as for the reference's
                 # transposed kernel (>= 90% of keys there)
                 share = n_same / n_all
-                print(f"kernel vs twin: N={n} d={d} B=1,7,64,1024 planes=1,2,3 "
-                      f"ip,l2 dyadic+random: ok (random: max |hi err| {err:.3g}, "
-                      f"trunc keys equal {share:.4f})", flush=True)
+                print(f"kernel vs twin: N={n} d={d} B={','.join(map(str, batches))} "
+                      f"planes=1,2,3 ip,l2 dyadic+random: ok (random: max |hi err| "
+                      f"{err:.3g}, trunc keys equal {share:.4f})", flush=True)
                 if share < 0.9:
                     raise AssertionError(f"only {share:.4f} of trunc keys agree")
+        for b, n, d in ((7, 4224, 128), (64, 4096, 768), (300, 4224, 768), (1000, 4224, 64)):
+            for planes in (1, 2, 3):
+                for dyadic in (True, False):
+                    inp = self._scan_inputs(b, n, d, "l2", dyadic, seed=b + planes)
+                    got = {arm: self._compare(*inp, planes, dyadic, arm=arm)[3]
+                           for arm in ("general", "wide")}
+                    if dyadic:
+                        if not all(torch.equal(g_, w) for g_, w in
+                                   zip(got["general"], got["wide"])):
+                            raise AssertionError("dyadic planes differ between the arms")
+                    else:
+                        plane_contract(got["wide"], got["general"], *inp)
+                    n_cases += 2
+                    del inp, got
+        arms = dict(fused_scan.arm_launches)
+        if not all(arms.values()):
+            raise AssertionError(f"an arm of the float domain was never launched: {arms}")
         self.torch.cuda.empty_cache()
-        print(f"kernel vs twin: {n_cases} cases ok (lanes differing at "
+        print(f"kernel vs twin: {n_cases} cases ok, launches per arm {arms}, each arm "
+              f"forced on 4 shapes and held against the other (lanes differing at "
               f"truncated ties: {getattr(self, 'lane_ties', 0)})")
 
     def int8_vs_twin(self):
-        """The int8 arm against its twins: bit-equal on every input."""
+        """The int8 domain against its twins: bit-equal on every input,
+        whichever arm runs, and arm against arm."""
         torch = self.torch
         from qrag_tpu_torch.ops import bounded_topk as bt
         from qrag_tpu_torch.ops import window_scan as ws
         from qrag_tpu_torch.ops.cuda import fused_scan
 
         gen = torch.Generator(device=self.dev).manual_seed(0)
+        cut = fused_scan.WIDE_MIN_B[True]
+        fused_scan.reset_launches()
         n_cases = 0
-        groups = [(n, d, (1, 7, 64, 1024)) for n in (4096, 4224, CAP_1M)
-                  for d in (16, 128, 768)]
-        groups.append((4096, 8192, (1, 7)))  # keys clip at 2^23
+        small = tuple(sorted({1, 7, cut - 1, cut, 64, 128, 256, 257, 1000, 1024}))
+        groups = [(n, d, small if n != CAP_1M else (1, 7, 64, 257, 1024))
+                  for n in (4096, 4224, CAP_1M) for d in (16, 64, 128, 768)
+                  if n != CAP_1M or d != 64]
+        groups.append((4096, 8192, (1, 7, 64)))  # keys clip at 2^23
         for n, d, batches in groups:
             x = torch.randint(-127, 128, (n, d), generator=gen, device=self.dev,
                               dtype=torch.int8)
@@ -265,24 +295,33 @@ class Smoke:
                     q[0] = x[5]  # aligned pair: dot = d * 127^2 >> 2^23
                 refs = {1: (ws.packed_window_scan(q, x, lr),),
                         2: bt.packed_window_scan_top2_int(q, x, lr)}
+                # the planned arm, then every arm that takes the shape
+                arms = [None, "general"] + (["wide"] if d % 128 == 0 else [])
                 for planes, ref in refs.items():
-                    got = fused_scan.packed_window_scan(q, x, None, planes=planes)
-                    torch.cuda.synchronize()
-                    if len(got) != planes or not all(
-                        torch.equal(g_, r) for g_, r in zip(got, ref)
-                    ):
-                        raise AssertionError(
-                            f"int8 planes={planes} N={n} d={d} B={b} differ from the twin"
-                        )
-                    n_cases += 1
+                    for arm in arms if n != CAP_1M else arms[:1]:
+                        got = (fused_scan.packed_window_scan(q, x, None, planes=planes)
+                               if arm is None else
+                               fused_scan.packed_window_scan_cuda(q, x, planes=planes, arm=arm))
+                        torch.cuda.synchronize()
+                        if len(got) != planes or not all(
+                            torch.equal(g_, r) for g_, r in zip(got, ref)
+                        ):
+                            raise AssertionError(
+                                f"int8 planes={planes} N={n} d={d} B={b} arm={arm} "
+                                "differ from the twin"
+                            )
+                        n_cases += 1
                 clipped += int(((refs[2][0] >> 7).abs() >= (1 << 23) - 1).sum())
             print(f"kernel vs twin int8: N={n} d={d} B={','.join(map(str, batches))} "
                   f"planes=1,2: bit-equal (clipped top keys: {clipped})", flush=True)
             if d == 8192 and not clipped:
                 raise AssertionError("the clip case clipped no key")
             del x
+        arms = dict(fused_scan.arm_launches)
+        if not all(arms.values()):
+            raise AssertionError(f"an arm of the int8 domain was never launched: {arms}")
         self.torch.cuda.empty_cache()
-        print(f"kernel vs twin int8: {n_cases} cases bit-equal")
+        print(f"kernel vs twin int8: {n_cases} cases bit-equal, launches per arm {arms}")
 
     def gather_vs_twin(self):
         """The row-gather kernel against plain_gather_rows: bit-equal."""
@@ -815,12 +854,26 @@ class Smoke:
     def _launched(self, keys, label):
         from qrag_tpu_torch.ops.cuda import fused_scan
 
-        launches = dict(fused_scan.launches)
-        print(f"{label} launches: {launches}")
+        launches, arms = dict(fused_scan.launches), dict(fused_scan.arm_launches)
+        print(f"{label} launches: {launches}; per arm: {arms}")
         missed = [key for key in keys if launches[key] < 1]
         if missed:
             raise AssertionError(f"{label}: kernel not launched for {missed}: {launches}")
+        if sum(arms.values()) != sum(launches.values()):
+            raise AssertionError(f"{label}: arm counts {arms} vs launches {launches}")
         return {key: launches[key] for key in keys}
+
+    def _arm_of(self, fn, calls=1):
+        """Runs ``fn`` and names the arm of the scan kernel whose launch
+        count rose by ``calls``; fails if none or several did."""
+        from qrag_tpu_torch.ops.cuda import fused_scan
+
+        before = dict(fused_scan.arm_launches)
+        fn()
+        rose = {a: c - before[a] for a, c in fused_scan.arm_launches.items() if c != before[a]}
+        if len(rose) != 1 or list(rose.values()) != [calls]:
+            raise AssertionError(f"expected {calls} launches of one arm, counted {rose}")
+        return next(iter(rose))
 
     def default_path(self, x):
         """The default-config engine (bf16 bounded scan, f32 store)."""
@@ -957,11 +1010,18 @@ class Smoke:
             routed_s = time.perf_counter() - t0
             gather_launches = cg.launches
             scan_launches = dict(fused_scan.launches)
+            scan_arms = dict(fused_scan.arm_launches)
             topk_launches = dict(ct.launches)
-        print(f"routed path launches: gather_rows {gather_launches}, scan {scan_launches}, "
-              f"scan_topk {topk_launches} ({routed_s:.2f} s of requests)")
+        print(f"routed path launches: gather_rows {gather_launches}, scan {scan_launches} "
+              f"(per arm {scan_arms}), scan_topk {topk_launches} ({routed_s:.2f} s of requests)")
         if gather_launches < 1:
             raise AssertionError("routed path: the gather kernel was not launched")
+        # one scan a request: three of one query, three of 64
+        want = {"general": 0, "wide": 0}
+        for b in (1, 1, 64, 1, 64, 64):
+            want["wide" if b >= fused_scan.WIDE_MIN_B[False] else "general"] += 1
+        if scan_arms != want:
+            raise AssertionError(f"routed path: scan launches per arm {scan_arms}, not {want}")
         for (texts, _, used), resp in zip(runs, resps):
             route = [ctl.select_reranker(t) == "quantum" for t in texts]
             if used == "classical":
@@ -1100,6 +1160,7 @@ class Smoke:
                   f"f32 oracle {_recall(got_idx, truth):.4f}", flush=True)
         index.exact_scores = True
         self.search_timings(index, unit, "quantized window")
+        self.search_profile(index, unit, "quantized window")
         del engine, index, snap
         self._free()
 
@@ -1197,8 +1258,10 @@ class Smoke:
     def _kernel_row(self, key, b, n, d, pairs, err, gemm_ms, kernel):
         """One ``kernels`` entry: times measured here, the bound from
         this run's shapes (each input read once, each output written
-        once; operations over the card's peak for their type)."""
+        once; operations over the card's peak for their type), the arm
+        by the launch count that rose."""
         domain, planes = key
+        arm = self._arm_of(kernel)
         item = 1 if domain == "int8" else 2
         nbytes = (b + n) * d * item + planes * b * (n // WINDOW) * 4
         if domain == "bf16":
@@ -1214,6 +1277,7 @@ class Smoke:
             "gemm_floor_ms": gemm_ms,
             "device_ms": self._graph_ms(kernel, 5),
             "host_us": self._host_us(kernel, 50 if b > 1 else 200),
+            "arm": arm,
         }
         print(f"kernel row {key} B={b} N={n} d={d} [{self.card}]: {row}", flush=True)
 
@@ -1235,7 +1299,7 @@ class Smoke:
         lr = make_lane_rank(scan.shape[0], self.dev)
         ra = (-snap.sqnorms + torch.where(snap.valid, 0.0, -torch.inf))[None, :]
         n, d = scan.shape
-        for b in (1024, 1):
+        for b in (1024, 64, 1):
             q = torch.from_numpy(unit(b)).to(self.dev)
             ca = -(q * q).sum(1, keepdim=True)
             qb = q.bfloat16()
@@ -1253,8 +1317,11 @@ class Smoke:
                       f"torch.matmul bf16 GEMM alone {gemm_ms:.4f} ms; max |hi err| {err:.3g}")
                 self._kernel_row(("bf16", planes), b, n, d, pairs, err, gemm_ms, kernel)
 
+        self.cut_timings("bf16", lambda b: torch.from_numpy(unit(b)).to(self.dev).bfloat16(),
+                         scan, ra)
         self.census(engine.index, unit, "bf16")
         self.search_timings(engine.index, unit, "default bf16")
+        self.search_profile(engine.index, unit, "default bf16")
         lat = []
         for _ in range(20):
             body = {"vectors": unit(1).tolist(), "k": 10, "candidates": 100}
@@ -1267,9 +1334,40 @@ class Smoke:
               f"p90 {1e3 * lat[int(0.9 * len(lat))]:.3f} ms, "
               f"min {1e3 * lat[0]:.3f} ms (20 requests)")
 
+    def cut_timings(self, domain, queries, corpus, ra=None):
+        """Where the arms cut: device time (graph replays) of each arm,
+        forced, at planes=2 and B=1..256 on the engine's buffers."""
+        torch = self.torch
+        from qrag_tpu_torch.ops.cuda import fused_scan
+
+        rows = []
+        for b in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            q = queries(b)
+            ca = None if ra is None else -(q.float() ** 2).sum(1, keepdim=True)
+            alpha = 1.0 if ra is None else 2.0
+            ms = {arm: self._graph_ms(
+                lambda arm=arm: fused_scan.packed_window_scan_cuda(
+                    q, corpus, ra, ca, alpha, 2, arm), 5)
+                for arm in ("general", "wide")}
+            rows.append((b, round(ms["general"], 4), round(ms["wide"], 4),
+                         fused_scan.plan(q, corpus).arm))
+        print(f"timing [{self.card}]: scan kernel {domain} planes=2 N={corpus.shape[0]} "
+              f"d={corpus.shape[1]}, device_ms per arm (B, general, wide, planned arm): "
+              f"{rows}; cut WIDE_MIN_B={fused_scan.WIDE_MIN_B[domain == 'int8']}", flush=True)
+
     def search_timings(self, index, unit, label):
         """index.search B=1024 k=10 over ten different random batches
-        (host clock; each call ends in a device->host copy)."""
+        (host clock; each call ends in a device->host copy).  Its scans
+        must go through the wide arm, a B=1 search through the general
+        one."""
+        from qrag_tpu_torch.ops.cuda import fused_scan
+
+        before = dict(fused_scan.arm_launches)
+        index.search(unit(1), k=10)
+        one = {a: c - before[a] for a, c in fused_scan.arm_launches.items()}
+        if one["wide"] or not one["general"]:
+            raise AssertionError(f"{label}: a B=1 search launched {one}")
+        before = dict(fused_scan.arm_launches)
         runs = []
         for _ in range(10):
             q = unit(1024)
@@ -1281,6 +1379,10 @@ class Smoke:
                 index.bounded_escalations - esc0,
                 index.fallback_rows - fb0,
             ))
+        many = {a: c - before[a] for a, c in fused_scan.arm_launches.items()}
+        if many["general"] or not many["wide"]:
+            raise AssertionError(f"{label}: the B=1024 searches launched {many}")
+        print(f"{label} index.search scan launches per arm: B=1 {one}, 10 x B=1024 {many}")
         ms = [r[0] for r in runs]
         tier1 = [r[0] for r in runs if not r[1] and not r[2]]
         print(f"timing [{self.card}]: {label} index.search B=1024 k=10 over "
@@ -1292,6 +1394,53 @@ class Smoke:
               f"{np.median(tier1) if tier1 else float('nan'):.3f} ms; "
               f"per batch (ms, escalated, full sort) "
               f"{[(round(a, 3), b, c) for a, b, c in runs]}", flush=True)
+
+    def search_profile(self, index, unit, label, calls=5):
+        """Where index.search B=1024 k=10 spends its time: a
+        ``torch.profiler`` trace of ``calls`` calls (reported, never
+        asserted; profiled wall times run above unprofiled ones)."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        # batches that tier 1 certifies (the common case; an escalated
+        # batch's ~190 ms full sort would drown the rest), found by a
+        # run before the trace
+        batches = []
+        for _ in range(4 * calls):
+            q = unit(1024)
+            esc0, fb0 = index.bounded_escalations, index.fallback_rows
+            index.search(q, k=10)
+            if (index.bounded_escalations, index.fallback_rows) == (esc0, fb0):
+                batches.append(q)
+            if len(batches) == calls:
+                break
+        if len(batches) < calls:
+            print(f"profile {label}: not measured ({len(batches)} of {4 * calls} batches "
+                  f"certified in tier 1)")
+            return
+        torch.cuda.synchronize()
+        esc0, fb0 = index.bounded_escalations, index.fallback_rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for q in batches:
+                index.search(q, k=10)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / calls
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        if not by_name:
+            print(f"profile {label}: not measured (the profiler saw no device time)")
+            return
+        busy = sum(by_name.values()) / calls
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"profile [{self.card}]: {label} index.search B=1024 k=10, {calls} calls "
+              f"(escalated {index.bounded_escalations - esc0}, full sort "
+              f"{index.fallback_rows - fb0}): wall {wall:.3f} ms/call, device busy "
+              f"{busy:.3f} ms/call, idle share {1 - busy / wall:.2f}; device ms/call by "
+              f"kernel: {[(name[:60], round(ms / calls, 3)) for name, ms in top]}", flush=True)
 
     def census(self, index, unit, label):
         """Certificate census of a bounded index over 5 random batches
@@ -1321,7 +1470,7 @@ class Smoke:
 
         _, (q8x, _, _, _, _, lr) = engine.index._bounded_buffers_int8()
         n, d = q8x.shape
-        for b in (1024, 1):
+        for b in (1024, 64, 1):
             q8, _ = quantize_rows(torch.from_numpy(unit(b)).to(self.dev))
             qpad = torch.nn.functional.pad(q8, (0, 0, 0, max(24, b) - b))
             gemm_ms = self._events_ms(lambda: torch._int_mm(qpad, q8x.T), 10)
@@ -1344,6 +1493,8 @@ class Smoke:
                       f"plain twin {np.median([p for p, _ in pairs]):.4f} ms (runs {pairs}); "
                       f"torch._int_mm GEMM alone {gemm_ms:.4f} ms; planes bit-equal", flush=True)
                 self._kernel_row(("int8", planes), b, n, d, pairs, 0.0, gemm_ms, kernel)
+        self.cut_timings(
+            "int8", lambda b: quantize_rows(torch.from_numpy(unit(b)).to(self.dev))[0], q8x)
 
     def gather_timings(self, snap):
         """The gather kernel on the engine's f32 store (1,250,176 x 768)
@@ -1680,7 +1831,7 @@ def main() -> int:
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]
         kernels.append({
-            "name": f"packed_window_scan {key[0]} planes={key[1]}",
+            "name": f"packed_window_scan {key[0]} planes={key[1]} B=1024 ({row['arm']} arm)",
             "route": "cuda",
             "source": "qrag_tpu_torch/csrc/fused_scan.cu",
             "replaces": replaces,
@@ -1698,6 +1849,9 @@ def main() -> int:
             "gemm_floor_ms": row["gemm_floor_ms"],
             "device_ms": row["device_ms"],
             "host_us": row["host_us"],
+            "other_shapes": {
+                f"B={b}": smoke.kernel_rows[key + (b,)] for b in (64, 1)
+            },
         })
     gather_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                    "device_ms", "host_us", "library_device_ms", "library_host_us")

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# -ldl: fused_scan.cu looks the tensor-map encoder up in the loaded libcuda
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-ldl")
 LIB_NAME = "libqrag_tpu_torch.so"
 
 _lock = threading.Lock()
@@ -109,16 +110,21 @@ def bind(path: Path) -> ctypes.CDLL:
     """Load a built library and declare its C entry points."""
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = lib.qrag_packed_window_scan
-    fn.argtypes = [P, P, P, P, I, I, I, ctypes.c_float, I, P, P, P, P]
-    fn.restype = I
-    L = ctypes.c_longlong
-    # an older build (scan_ab's other side) may predate the int8 arm and
-    # the gather and scan_topk kernels
-    if hasattr(lib, "qrag_packed_window_scan_int8"):
-        fn8 = lib.qrag_packed_window_scan_int8
-        fn8.argtypes = [P, P, I, I, I, I, P, P, P]
-        fn8.restype = I
+    L, F = ctypes.c_longlong, ctypes.c_float
+    # an older build (scan_ab's other side) has the scan's entry points
+    # of before the arms, and may predate the int8 domain and the gather
+    # and scan_topk kernels
+    signatures = {
+        "qrag_window_scan_bf16": [P, P, P, P, I, I, I, F, I, I, I, I, P, P, P, P],
+        "qrag_window_scan_int8": [P, P, I, I, I, I, I, I, I, P, P, P],
+        "qrag_packed_window_scan": [P, P, P, P, I, I, I, F, I, P, P, P, P],
+        "qrag_packed_window_scan_int8": [P, P, I, I, I, I, P, P, P],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = I
     if hasattr(lib, "qrag_gather_rows"):
         g = lib.qrag_gather_rows
         g.argtypes = [P, P, I, L, L, L, P, P]

@@ -24,6 +24,17 @@ N, D = 16384, 128
 CFG = {"embedding": {"provider": "hash", "dim": D}}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _clean_env_channel():
+    """Both engines' ``load`` re-read QRAG_* overrides from the
+    environment.  A serve CLI driven by an earlier test of the same
+    process exports its index choices there; this module's engines must
+    be the bundle's own, whatever ran before."""
+    saved = {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("QRAG_")}
+    yield
+    os.environ.update(saved)
+
+
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
     """A JAX-written engine bundle: N=16384 unit rows (normalized at
@@ -256,3 +267,15 @@ def test_framework_free_copies_match_reference():
         m.incr("requests", 2)
     snap = m.snapshot()
     assert snap["counters"] == {"requests": 2} and snap["latency"]["search"]["count"] == 1
+
+
+def test_load_reads_env_overrides(bundle, monkeypatch):
+    """The env channel is real: an exported index choice changes what
+    ``load`` builds (so tests that drive the CLI must scrub it), and
+    without one the bundle's own config stands."""
+    from qrag_tpu_torch.index.quantized_index import QuantizedFlatIndex
+
+    assert not isinstance(TEngine.load(bundle, device="cpu").index, QuantizedFlatIndex)
+    monkeypatch.setenv("QRAG_INDEX_QUANTIZATION", "int8")
+    monkeypatch.setenv("QRAG_INDEX_QUANT_SCAN", "window")
+    assert isinstance(TEngine.load(bundle, device="cpu").index, QuantizedFlatIndex)

@@ -1,5 +1,6 @@
 """GPU-only checks of the Hopper kernels (the packed window scan's float
-and int8 arms, the row gather, every arm of scan_topk) against their
+and int8 domains, each in its general and its wide arm, the row gather,
+every arm of scan_topk) against their
 plain twins, and of the shared launch path (marked ``gpu``; they skip
 without a CUDA device).  This file
 imports no jax, so it runs on the GPU host, which has none:
@@ -102,6 +103,128 @@ def test_gpu_float_top1_kernel_matches_twin(cuda, bsize):
     torch.cuda.synchronize()
     ref = tws.packed_window_scan(q, x, tws.make_lane_rank(n, cuda), ra, ca, 2.0)
     assert torch.equal(got, ref)  # dyadic inputs: every sum exact
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arm", ["general", "wide"])
+@pytest.mark.parametrize("int8,planes", [(False, 1), (False, 2), (False, 3), (True, 1), (True, 2)])
+@pytest.mark.parametrize(
+    "b,n,d",
+    [(1, 4096, 128), (2, 128, 128), (7, 4224, 768), (64, 4096, 128), (129, 4224, 128),
+     (300, 4224, 768), (1000, 4352, 128), (5000, 384, 128)],
+)
+def test_gpu_scan_arms_match_twin(cuda, b, n, d, int8, planes, arm):
+    """Each arm of each domain, forced, on shapes both take (a ragged
+    last query tile, 1, 3, 33 and 34 windows, 40 query tiles): the int8
+    planes bit-equal to the twin's, the float planes within the plane
+    contract, and the arm's launch counted."""
+    from qrag_tpu_torch.ops import bounded_topk as tbt
+    from qrag_tpu_torch.ops import window_scan as tws
+    from qrag_tpu_torch.ops.cuda import fused_scan
+    from qrag_tpu_torch.ops.cuda.scan_ab import plane_contract
+
+    rng = np.random.default_rng(b + n + d + planes)
+    lr = tws.make_lane_rank(n, cuda)
+    before = fused_scan.arm_launches[arm]
+    if int8:
+        q = torch.from_numpy(rng.integers(-127, 128, (b, d)).astype(np.int8)).to(cuda)
+        x = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(cuda)
+        got = fused_scan.packed_window_scan_cuda(q, x, planes=planes, arm=arm)
+        torch.cuda.synchronize()
+        ref = ((tws.packed_window_scan(q, x, lr),) if planes == 1
+               else tbt.packed_window_scan_top2_int(q, x, lr))
+        assert len(got) == planes and all(torch.equal(g, r) for g, r in zip(got, ref))
+    else:
+        q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(cuda).bfloat16()
+        x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+        x = (x / x.norm(dim=1, keepdim=True)).bfloat16()
+        ra = -(x.float() ** 2).sum(1)[None, :]
+        ra[:, 5::9] = -torch.inf
+        ca = -(q.float() ** 2).sum(1, keepdim=True)
+        got = fused_scan.packed_window_scan_cuda(q, x, ra, ca, 2.0, planes, arm)
+        torch.cuda.synchronize()
+        twin = {1: lambda *a: (tws.packed_window_scan(*a),), 2: tbt.packed_window_scan_top2,
+                3: tbt.packed_window_scan_top3}[planes]
+        ref = twin(q, x, lr, ra, ca, 2.0)
+        assert len(got) == planes
+        _, same, keys, _ = plane_contract(got, ref, q, x, 2.0, ra, ca)
+        assert keys < 1000 or same >= 0.9 * keys  # a floor for samples of some size
+    assert fused_scan.arm_launches[arm] == before + 1
+
+
+@pytest.mark.gpu
+def test_gpu_scan_planned_arm_is_launched(cuda):
+    """Unforced, a call launches the arm that ``plan`` names: general up
+    to the cut and where d is no whole number of slabs, wide past it."""
+    from qrag_tpu_torch.ops.cuda import fused_scan
+
+    for int8 in (False, True):
+        cut = fused_scan.WIDE_MIN_B[int8]
+        for b, d in ((1, 128), (cut - 1, 128), (cut, 128), (1024, 128), (1024, 48)):
+            dtype = torch.int8 if int8 else torch.bfloat16
+            q = torch.ones((b, d), device=cuda).to(dtype)
+            x = torch.ones((4224, d), device=cuda).to(dtype)
+            want = fused_scan.plan(q, x).arm
+            assert want == ("wide" if b >= cut and d == 128 else "general")
+            before = dict(fused_scan.arm_launches)
+            fused_scan.packed_window_scan(q, x, None, planes=2)
+            torch.cuda.synchronize()
+            rose = {a: c - before[a] for a, c in fused_scan.arm_launches.items()}
+            assert rose == {a: int(a == want) for a in rose}
+
+
+@pytest.mark.gpu
+def test_gpu_scan_wide_arm_on_concurrent_streams(cuda):
+    """Worker threads launch the persistent wide arm on streams of their
+    own at once (as a batching server's do): every result equals the
+    twin's, and every launch is counted."""
+    import threading
+
+    from qrag_tpu_torch.ops import bounded_topk as tbt
+    from qrag_tpu_torch.ops import window_scan as tws
+    from qrag_tpu_torch.ops.cuda import fused_scan
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n, d = 131072, 128
+    x = torch.randint(-127, 128, (n, d), generator=g, device=cuda, dtype=torch.int8)
+    qs = [torch.randint(-127, 128, (b, d), generator=g, device=cuda, dtype=torch.int8)
+          for b in (64, 300, 1024, 129)]
+    lr = tws.make_lane_rank(n, cuda)
+    want = [tbt.packed_window_scan_top2_int(q, x, lr) for q in qs]
+    fused_scan.packed_window_scan(qs[0], x, None, planes=2)  # the build, outside the count
+    torch.cuda.synchronize()
+    before = fused_scan.arm_launches["wide"]
+    got = [None] * len(qs)
+
+    def work(i):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for _ in range(5):
+                got[i] = fused_scan.packed_window_scan(qs[i], x, None, planes=2)
+            torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(qs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert fused_scan.arm_launches["wide"] == before + 5 * len(qs)
+    for g_, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g_, w))
+
+
+@pytest.mark.gpu
+def test_gpu_scan_forced_arm_that_does_not_fit_raises(cuda):
+    from qrag_tpu_torch.ops.cuda import fused_scan
+
+    before = dict(fused_scan.arm_launches)
+    for dtype, d in ((torch.bfloat16, 48), (torch.int8, 64)):
+        x = torch.ones((256, d), device=cuda).to(dtype)
+        with pytest.raises(ValueError, match="wide arm does not take"):
+            fused_scan.packed_window_scan_cuda(x[:64], x, planes=2, arm="wide")
+        with pytest.raises(ValueError, match="does not take"):
+            fused_scan.packed_window_scan_cuda(x[:64], x, planes=2, arm="tiled")
+    assert dict(fused_scan.arm_launches) == before
 
 
 @pytest.mark.gpu

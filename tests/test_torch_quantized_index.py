@@ -9,6 +9,7 @@ rtol 1e-5 (exact-score modes) or the reference's own score tolerance.
 """
 
 import json
+import os
 import threading
 import urllib.request
 
@@ -196,11 +197,21 @@ def test_engine_http_parity(name, corpus):
 # ---------------------------------------------------------------- CLI flags
 
 
+_CLI_ENV = ("QRAG_INDEX_TOPK_MODE", "QRAG_INDEX_BOUNDED_SCAN",
+            "QRAG_INDEX_BOUNDED_QUERY_DTYPE", "QRAG_INDEX_QUANTIZATION",
+            "QRAG_INDEX_QUANT_SCAN", "QRAG_INDEX_EXACT_SCORES")
+
+
 def _configure(monkeypatch, argv):
-    for var in ("QRAG_INDEX_TOPK_MODE", "QRAG_INDEX_BOUNDED_SCAN",
-                "QRAG_INDEX_BOUNDED_QUERY_DTYPE", "QRAG_INDEX_QUANTIZATION",
-                "QRAG_INDEX_QUANT_SCAN", "QRAG_INDEX_EXACT_SCORES"):
-        monkeypatch.delenv(var, raising=False)
+    """``http_app._configure`` on a clean env channel.  It writes its
+    choices into ``os.environ`` for bundle reloads; ``delenv`` alone
+    records nothing for a variable that is not set, so what
+    ``_configure`` wrote would outlive the test and reach every later
+    ``QragEngine.load`` of the process.  ``setenv`` first makes
+    monkeypatch record the variable as absent and remove it again."""
+    for var in _CLI_ENV:
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
     parser = http_app._parser()
     return http_app._configure(parser, parser.parse_args(argv))
 
@@ -231,3 +242,15 @@ def test_cli_int8_flags(monkeypatch):
 def test_cli_int8_flag_refusals(monkeypatch, argv):
     with pytest.raises(SystemExit):
         _configure(monkeypatch, argv)
+
+
+def test_cli_flags_leave_the_env_channel_as_found():
+    """What ``_configure`` exports must not outlive the test that called
+    it: a leaked QRAG_INDEX_QUANTIZATION=int8 makes every later
+    ``QragEngine.load`` in the process build a quantized index."""
+    before = {v: os.environ.get(v) for v in _CLI_ENV}
+    with pytest.MonkeyPatch.context() as mp:
+        _configure(mp, ["--bounded-scan", "int8", "--bounded-query-dtype", "store"])
+        _configure(mp, ["--lean-scan"])
+        assert os.environ["QRAG_INDEX_QUANTIZATION"] == "int8"
+    assert {v: os.environ.get(v) for v in _CLI_ENV} == before

@@ -212,5 +212,5 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         gather_rows.gather_rows_cuda(x, torch.arange(4))
     with pytest.raises(ValueError, match="CUDA"):
-        fused_scan._launch_kernel(x[:2].bfloat16(), x.bfloat16(), None, None, 1.0, 2, False)
+        fused_scan.packed_window_scan_cuda(x[:2].bfloat16(), x.bfloat16(), None, None, 1.0, 2)
     assert gather_rows.launches == 0 and not any(scan_topk.launches.values())
