@@ -67,7 +67,27 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    back-to-back calls of its wrapper between two CUDA events (host and
    device together); ``device_ms``, the same calls captured in a CUDA
    graph and replayed (the device alone); ``host_us``, the host clock
-   over un-synchronised calls (the wrapper's host path alone).
+   over un-synchronised calls (the wrapper's host path alone);
+7. the trained models and the MCP ingestion path, with the shipped
+   weights (``artifacts/``): the cross-encoder (interaction head, 224
+   tokens) and the bi-encoder in bf16 against themselves at f32 (sigmoid
+   scores within ``BF16_SCORE_ATOL``, top-10 order but within it,
+   cosine at or above ``BF16_COSINE_FLOOR``); 65,536 ``corpus_gen``
+   transcripts (2,048 episodes x 32 chunks) written to a
+   ``LocalTranscriptStore`` and ingested through the port's MCP server
+   and client (``ProcessTranscriptsToEmbeddings``, trained embedder on
+   the card): the stored vectors equal the bi-encoder's outputs,
+   ``SearchIndex`` equals the f32 exact top-10 (reranked: the plain
+   fidelity composition) with the scan kernel's launches counted, and
+   recall@10 of paraphrases is printed; ``create_server`` over that
+   index configured by env for the trained embedder and the
+   cross-encoder: /search with text, /rerank "classical" with 100
+   documents (the cross-encoder on every 32-pair batch, no fallback,
+   the order of the plain f32 composition within the tolerance),
+   /search_rerank "auto" (gather launches counted); then texts/s and
+   pairs/s (shipped and default geometry) from CUDA events, the host's
+   tokenization, the idle share and a ``torch.profiler`` split, each
+   beside its FLOP bound.
 
 The last line is the JSON result; the line before it lists the kernels,
 the line before that the card.  ``python3 chip_smoke.py --only
@@ -1668,6 +1688,415 @@ class Smoke:
                   f"(graph replay): {t}", flush=True)
         self._free()
 
+    # -------------------------------------------------------------- phase 7
+
+    def models_path(self, n_episodes=2048, chunks_per_episode=32):
+        """The trained models and the MCP ingestion path with the shipped
+        weights: the models at bf16 against themselves at f32, ingestion
+        of a corpus_gen corpus over MCP, the HTTP server over the
+        ingested index, then the models' timings.  Returns the kernel
+        launches of the path's runs."""
+        import shutil
+        import tempfile
+
+        from qrag_tpu_torch.pipeline import corpus_gen
+
+        models = self.models_vs_f32()
+        chunks = corpus_gen.generate_corpus(n_episodes, chunks_per_episode, seed=0)
+        tmp = tempfile.mkdtemp(prefix="qrag_smoke_")
+        try:
+            index_path, meta_to_chunk, launches = self.mcp_ingest(tmp, chunks, models)
+            launches.update(self.models_serving(index_path, chunks, meta_to_chunk, models))
+            self.model_timings(chunks, models)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self._free()
+        return launches
+
+    def models_vs_f32(self):
+        """Both shipped models in bf16 on the card against themselves at
+        f32 from the same carried weights: sigmoid scores within
+        ``BF16_SCORE_ATOL``, the top-10 order equal but between
+        documents whose f32 scores lie within it, embeddings' cosine to
+        their f32 twins at or above ``BF16_COSINE_FLOOR``."""
+        torch = self.torch
+        from qrag_tpu_torch.config import ClassicalConfig
+        from qrag_tpu_torch.models import bi_encoder as be
+        from qrag_tpu_torch.models import cross_encoder as ce
+        from qrag_tpu_torch.pipeline import corpus_gen
+
+        cc = ClassicalConfig(method="cross-encoder", model_cache_dir="artifacts",
+                             model_name="cross_encoder")
+        scorer = ce.CrossEncoderScorer.from_config(cc, device=self.dev)
+        scorer32 = ce.CrossEncoderScorer.from_config(cc, device=self.dev, dtype=torch.float32)
+        cfg = scorer.cfg
+        geometry = (cfg.head_type, cfg.dim, cfg.n_heads, cfg.n_layers, cfg.n_experts,
+                    cfg.max_len, tuple(scorer.model.pos_emb.shape))
+        if scorer.dtype != torch.bfloat16 or geometry != (
+                "interaction", 128, 4, 2, 4, 224, (128, 128)):
+            raise AssertionError(f"cross-encoder: {scorer.dtype} {geometry}")
+        tol = ce.BF16_SCORE_ATOL
+        chunks = corpus_gen.generate_corpus(64, 32, seed=0)
+        rng = np.random.RandomState(0)
+        worst, reorders = 0.0, 0
+        for _ in range(4):
+            src = int(rng.randint(len(chunks)))
+            query = corpus_gen.make_query(chunks[src], rng)
+            docs = [chunks[int(i)].text for i in rng.randint(len(chunks), size=99)]
+            docs.append(chunks[src].text)
+            sb, sf = scorer.score(query, docs), scorer32.score(query, docs)
+            worst = max(worst, float(np.abs(sb - sf).max()))
+            ob = np.argsort(-sb, kind="stable")[:10]
+            of = np.argsort(-sf, kind="stable")[:10]
+            if not (np.abs(sf[ob] - sf[of]) <= tol).all():
+                raise AssertionError(f"bf16 top-10 {ob} vs f32 {of} beyond the tolerance")
+            reorders += int((ob != of).sum())
+        if worst > tol:
+            raise AssertionError(f"cross-encoder bf16 vs f32: max |score diff| {worst} > {tol}")
+        emb = be.TrainedEmbedder(weights_dir="artifacts/bi_encoder", device=self.dev)
+        emb32 = be.TrainedEmbedder(weights_dir="artifacts/bi_encoder", device=self.dev,
+                                   dtype=torch.float32)
+        texts = [c.text for c in chunks[:1000]]
+        texts += [corpus_gen.make_query(c, rng) for c in chunks[:100]] + [""]
+        cos = float((emb(texts) * emb32(texts)).sum(1).min())
+        if emb.dtype != torch.bfloat16 or emb.dim != 128 or cos < be.BF16_COSINE_FLOOR:
+            raise AssertionError(f"bi-encoder {emb.dtype} dim {emb.dim}: min cosine {cos}")
+        print(f"models bf16 vs f32 on {self.dev} (shipped weights; cross-encoder "
+              f"{geometry}): 400 pairs, max |sigmoid diff| {worst:.5f} (tolerance {tol}), "
+              f"top-10 reorders within it {reorders}; bi-encoder min cosine over "
+              f"{len(texts)} texts {cos:.6f} (floor {be.BF16_COSINE_FLOOR})", flush=True)
+        return {"scorer": scorer, "scorer32": scorer32, "embedder": emb, "embedder32": emb32}
+
+    def _write_transcripts(self, root, chunks, show):
+        """One transcript file per corpus chunk, laid out as the
+        reference's S3 keys: <show>/<episode>/<episode>_c<i>_transcript.json."""
+        import os
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        meta_to_chunk, files = {}, []
+        for i, c in enumerate(chunks):
+            episode, ci = c.metadata.split("/")[1].split("#c")
+            name = f"{episode}_c{int(ci):02d}_transcript"
+            files.append((os.path.join(root, show, episode, name + ".json"), c.text))
+            meta_to_chunk[f"{show}/{name}"] = i
+        for d in sorted({os.path.dirname(path) for path, _ in files}):
+            os.makedirs(d, exist_ok=True)
+
+        def write(item):
+            with open(item[0], "w") as f:
+                json.dump({"text": item[1]}, f)
+
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(write, files))  # set-up: the file system's latency, overlapped
+        return meta_to_chunk
+
+    def mcp_ingest(self, tmp, chunks, models):
+        """ProcessTranscriptsToEmbeddings, then SearchIndex (plain and
+        reranked), through the port's McpClient against its MCP server
+        on the card with the trained embedder."""
+        import os
+
+        from qrag_tpu_torch.config import EmbeddingConfig
+        from qrag_tpu_torch.index import faiss_io
+        from qrag_tpu_torch.pipeline.storage import LocalTranscriptStore
+        from qrag_tpu_torch.serving.mcp_client import McpClient
+        from qrag_tpu_torch.serving.mcp_server import create_tool_service, serve_in_thread
+
+        show = "Piers_Morgan_Uncensored"
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "transcripts")
+        meta_to_chunk = self._write_transcripts(root, chunks, show)
+        write_s = time.perf_counter() - t0
+        service = create_tool_service(
+            store=LocalTranscriptStore(root),
+            config=EmbeddingConfig(provider="trained", model="artifacts/bi_encoder", dim=128),
+            device=self.dev,
+        )
+        server = serve_in_thread(service)
+        index_path = os.path.join(tmp, "ingested.faiss")
+        progress = []  # (arrival time, progress, message)
+        try:
+            client = McpClient(
+                f"http://127.0.0.1:{server.server_address[1]}/mcp",
+                on_progress=lambda p, t, m: progress.append((time.perf_counter(), p, m)),
+            )
+            client.initialize()
+            if len(client.list_tools()) != 5:
+                raise AssertionError("tools/list")
+            t0 = time.perf_counter()
+            ok, out = client.call_tool("ProcessTranscriptsToEmbeddings",
+                                       {"show_name": show, "index_path": index_path})
+            ingest_s = time.perf_counter() - t0
+            t_end = time.perf_counter()
+            n = len(chunks)
+            # the tool's stages, from when its progress events arrived
+            marks = [t for t, _, m in progress if m and not m.startswith("embedding texts")]
+            stages = dict(zip(("read", "embed", "store"),
+                              np.diff(marks[:3] + [t_end]).round(2).tolist()))
+            if not ok or (out["embeddings_created"], out["total_vectors"]) != (n, n):
+                raise AssertionError(f"ingestion: {out}")
+            data = faiss_io.read_flat_index(index_path)
+            meta = faiss_io.read_metadata(index_path)
+            texts = [chunks[meta_to_chunk[m]].text for m in meta]
+            t0 = time.perf_counter()
+            reread = len(LocalTranscriptStore(root).read_show(show))
+            reread_s = time.perf_counter() - t0
+            # the tool's arithmetic: the mean of a text's one chunk vector,
+            # normalized, through a list of floats
+            t0 = time.perf_counter()
+            raw = models["embedder"](texts)
+            embed_s = time.perf_counter() - t0
+            want = np.stack([v / np.linalg.norm(v) for v in raw]).astype(np.float32)
+            vec_err = float(np.abs(np.asarray(data.vectors) - want).max())
+            if data.ntotal != n or vec_err > 1e-6:
+                raise AssertionError(f"stored vectors vs the bi-encoder: ntotal {data.ntotal}, "
+                                     f"max |diff| {vec_err}")
+            print(f"MCP ingestion [{self.card}]: {n:,} transcripts ({len(set(c.episode for c in chunks))} "
+                  f"episodes) written in {write_s:.1f} s; ProcessTranscriptsToEmbeddings "
+                  f"{ingest_s:.1f} s ({n / ingest_s:.0f} transcripts/s, {len(progress)} progress "
+                  f"events; stages by their progress events, s: {stages}); stored vectors "
+                  f"equal the bi-encoder's outputs (max |diff| {vec_err:.2e}); afterwards, "
+                  f"alone: the store re-read {reread:,} transcripts in {reread_s:.1f} s, the "
+                  f"bi-encoder embedded them in {embed_s:.1f} s", flush=True)
+            engine_searches = self._mcp_search(client, service, index_path, chunks,
+                                               meta_to_chunk, models)
+        finally:
+            server.shutdown()
+            server.server_close()
+        return index_path, meta_to_chunk, engine_searches
+
+    def _mcp_search(self, client, service, index_path, chunks, meta_to_chunk, models):
+        """SearchIndex against the f32 exact top-10 (and, reranked, the
+        plain fidelity composition) over the stored vectors; recall@10 of
+        paraphrases as a record.  Returns the scan kernel's launches."""
+        from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.pipeline import corpus_gen
+
+        rng = np.random.RandomState(1)
+        sources = [int(i) for i in rng.randint(len(chunks), size=128)]
+        queries = [corpus_gen.make_query(chunks[i], rng) for i in sources]
+        fused_scan.reset_launches()
+        t0 = time.perf_counter()
+        plain = [client.call_tool("SearchIndex", {"index_path": index_path, "query": q, "k": 10})
+                 for q in queries]
+        search_s = time.perf_counter() - t0
+        reranked = [client.call_tool("SearchIndex", {"index_path": index_path, "query": q,
+                                                     "k": 10, "rerank": True})
+                    for q in queries[:8]]
+        launches = self._launched([("bf16", 2), ("bf16", 3)], "MCP SearchIndex")
+        if not all(ok for ok, _ in plain + reranked):
+            raise AssertionError("SearchIndex failed")
+        (engine,) = service.get_tool("SearchIndex")._engines.values()
+        snap = engine.index.device_buffers()
+        qv = models["embedder"](queries[:8])
+        ties = self._check_search(snap, [(qv[i:i + 1], {"results": [plain[i][1]["hits"]]})
+                                         for i in range(8)])
+        self._check_rerank(snap, [(qv[i:i + 1], {"results": [reranked[i][1]["hits"]],
+                                                 "reranker_used": "quantum"})
+                                  for i in range(8)])
+        hits = [[meta_to_chunk[h["metadata"]] for h in out["hits"]] for _, out in plain]
+        recall = float(np.mean([src in h for src, h in zip(sources, hits)]))
+        print(f"MCP SearchIndex: k=10 equals the f32 exact top-10 over the stored vectors "
+              f"(8 queries; sub-noise tie reorders {ties}); rerank=true equals the oracle "
+              f"top-100 -> fidelity -> stable top-10; recall@10 of {len(queries)} make_query "
+              f"paraphrases against their source chunk {recall:.4f} (a record); "
+              f"{len(queries)} searches in {search_s:.2f} s", flush=True)
+        return {("ingest", key): n for key, n in launches.items()}
+
+    def models_serving(self, index_path, chunks, meta_to_chunk, models):
+        """create_server over the ingested index, configured through the
+        env channel for the trained embedder and the cross-encoder:
+        /search with text, /rerank "classical" with 100 documents served
+        by the cross-encoder on every batch, /search_rerank "auto"."""
+        torch = self.torch
+        from qrag_tpu_torch.config import QragConfig
+        from qrag_tpu_torch.engine import QragEngine
+        from qrag_tpu_torch.models import cross_encoder as ce
+        from qrag_tpu_torch.ops.cuda import gather_rows as cg
+        from qrag_tpu_torch.pipeline import corpus_gen
+
+        env = {
+            "QRAG_EMBEDDING_PROVIDER": "trained",
+            "QRAG_EMBEDDING_MODEL": "artifacts/bi_encoder",
+            "QRAG_CLASSICAL_METHOD": "cross-encoder",
+            "QRAG_CLASSICAL_MODEL_CACHE_DIR": "artifacts",
+            "QRAG_CLASSICAL_MODEL_NAME": "cross_encoder",
+        }
+        config = QragConfig().with_env_overrides(env)
+        engine = QragEngine.from_faiss(index_path, config=config, device=self.dev)
+        if type(engine.embedder).__name__ != "TrainedEmbedder":
+            raise AssertionError(f"embedder {type(engine.embedder)}")
+        snap = engine.index.device_buffers()
+        classical = engine.controller.classical_reranker
+        rng = np.random.RandomState(2)
+        src = int(rng.randint(len(chunks)))
+        query = corpus_gen.make_query(chunks[src], rng)
+        contents = [chunks[int(i)].text for i in rng.randint(len(chunks), size=99)]
+        contents.insert(17, chunks[src].text)
+        docs = [{"id": str(i), "content": c} for i, c in enumerate(contents)]
+        keyword = [f"find the advertisement about {chunks[i].rare[0]}" for i in range(4)]
+        texts = [query] + keyword + [corpus_gen.make_query(chunks[i], rng) for i in range(3)]
+        with self._serve(engine) as port:
+            st = _post(port, "/search", {"query": query, "k": 10})
+            rr = _post(port, "/rerank", {"query": query, "documents": docs, "top_k": 100,
+                                         "reranker_type": "classical"})
+            scorer = classical._cross_encoder
+            forwards = scorer.forward_calls if scorer is not None else 0
+            cg.reset_launches()
+            auto = _post(port, "/search_rerank", {"queries": texts, "k": 10, "candidates": 100,
+                                                  "reranker_type": "auto"})
+            gather_launches = cg.launches
+        ties = self._check_search(snap, [(engine.embedder([query]), st)])
+        if forwards != -(-len(docs) // 32) or classical._active_method != "cross-encoder" or (
+                rr["reranker_used"] != "classical"):
+            raise AssertionError(f"/rerank classical: {forwards} cross-encoder forwards, "
+                                 f"method {classical._active_method}, {rr['reranker_used']}")
+        if scorer.dtype != torch.bfloat16:
+            raise AssertionError(f"served scorer dtype {scorer.dtype}")
+        # the plain composition: tokenize, the scorer at f32, stable sort
+        tokens, mask = ce.tokenize_batch(query, contents, scorer.cfg.max_len)
+        want = torch.sigmoid(models["scorer32"].logits(tokens, mask)).cpu().numpy()
+        order = np.argsort(-want, kind="stable")
+        got_ids = [int(e["document"]["id"]) for e in rr["documents"]]
+        got_scores = np.asarray([e["score"] for e in rr["documents"]])
+        tol = ce.BF16_SCORE_ATOL
+        if sorted(got_ids) != list(range(len(docs))) or not (
+                np.abs(want[got_ids] - want[order]) <= tol).all() or not (
+                np.abs(got_scores - want[got_ids]) <= tol).all():
+            raise AssertionError(f"/rerank classical order {got_ids[:10]} vs the plain "
+                                 f"composition {order[:10].tolist()}")
+        if gather_launches < 1:
+            raise AssertionError("/search_rerank auto: the gather kernel was not launched")
+        route = [engine.controller.select_reranker(t) == "quantum" for t in texts]
+        self._check_routed(snap, engine.embedder(texts), route, auto, "auto")
+        print(f"serving the ingested index (trained embedder, cross-encoder): /search text "
+              f"equals the f32 oracle (tie reorders {ties}); /rerank classical 100 documents: "
+              f"{forwards} cross-encoder forwards of 32-pair batches, no fallback, order of the "
+              f"plain f32 composition within {tol} (source chunk at rank "
+              f"{got_ids.index(17) + 1}); /search_rerank auto B={len(texts)} "
+              f"({sum(route)} quantum) equals the plain routed composition, gather launches "
+              f"{gather_launches}", flush=True)
+        return {("ingest", "gather_rows"): gather_launches}
+
+    def _model_profile(self, fn, calls):
+        """Device busy time, idle share and the device time of the
+        model's parts (record_function ranges around attention, the MoE
+        products and the layer norms; the rest is elementwise work and
+        copies), from a ``torch.profiler`` trace of ``calls`` calls."""
+        from torch.profiler import record_function
+
+        from qrag_tpu_torch.models import cross_encoder as ce
+
+        parts = {"attention": (ce.Attention, ("project", "attend")),
+                 "moe": (ce.MoEFFN, ("forward",)), "layer_norm": (ce.LayerNorm, ("forward",))}
+        saved = []
+        try:
+            return self._profile_parts(fn, calls, parts, saved, record_function)
+        except Exception as e:  # noqa: BLE001 - a measurement, never a condition
+            return {"profile": f"not measured ({e!r})"}
+        finally:
+            for cls, name, orig in saved:
+                setattr(cls, name, orig)
+
+    def _profile_parts(self, fn, calls, parts, saved, record_function):
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for label, (cls, names) in parts.items():
+            for name in names:
+                orig = getattr(cls, name)
+
+                def wrapped(*a, _orig=orig, _label=label, **k):
+                    with record_function(f"qrag::{_label}"):
+                        return _orig(*a, **k)
+
+                saved.append((cls, name, orig))
+                setattr(cls, name, wrapped)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / calls
+        busy = 0.0
+        split = {label: 0.0 for label in parts}
+        by_kernel = {}
+        n_kernels = 0
+        for ev in prof.events():
+            if ev.name.startswith("qrag::"):
+                # the ranges show twice: as CPU ops whose device time is
+                # that of the kernels they launched, and as device-side
+                # annotations, which are no kernels
+                if ev.device_type != DeviceType.CUDA:
+                    us = getattr(ev, "device_time_total", None)
+                    split[ev.name[6:]] += (ev.cuda_time_total if us is None else us) / 1e3
+            elif ev.device_type == DeviceType.CUDA:
+                us = ev.time_range.elapsed_us()
+                busy += us / 1e3
+                n_kernels += 1
+                by_kernel[ev.name[:48]] = by_kernel.get(ev.name[:48], 0.0) + us / 1e3
+        if busy <= 0.0:
+            return {"profile": "not measured (the profiler saw no device time)"}
+        split = {k: round(v / calls, 4) for k, v in split.items()}
+        split["elementwise_and_rest"] = round(busy / calls - sum(split.values()), 4)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        return {"profiled_wall_ms": wall, "device_busy_ms": busy / calls,
+                "idle_share": 1.0 - busy / calls / wall, "device_ms_by_part": split,
+                "kernels_per_call": n_kernels / calls,
+                "top_kernels_ms": [(name, round(ms / calls, 4)) for name, ms in top]}
+
+    def model_timings(self, chunks, models):
+        """Texts/s of the bi-encoder, pairs/s of the cross-encoder (the
+        shipped weights at 32 x 224, the default geometry at 32 x 256):
+        ``ms`` from CUDA events, the host's tokenization apart, a
+        profiler split, each beside its FLOP bound."""
+        torch = self.torch
+        from qrag_tpu_torch.models import bi_encoder as be
+        from qrag_tpu_torch.models import cross_encoder as ce
+        from qrag_tpu_torch.pipeline import corpus_gen
+
+        rng = np.random.RandomState(3)
+        texts = [c.text for c in chunks[:8192]]
+        emb = models["embedder"]
+        t0 = time.perf_counter()
+        tokens, mask = be.tokenize_texts(texts[:64], emb.cfg.tower.max_len)
+        tok_ms = 1e3 * (time.perf_counter() - t0)
+        mask[:, 0] = 1.0
+        t0 = time.perf_counter()
+        emb(texts)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        ms = self._events_ms(lambda: emb.encode(tokens, mask), 20)
+        flops = _model_flops(emb.cfg.tower, emb.cfg.tower.max_len, passes=1) * 64
+        row = {"batch": "64 x 128 tokens", "ms": ms, "texts_per_s": 64e3 / ms,
+               "end_to_end_texts_per_s": len(texts) / e2e_s, "host_tokenize_ms": tok_ms,
+               "gflop": flops / 1e9, "bound_ms": 1e3 * flops / BF16_FLOPS_S,
+               **self._model_profile(lambda: emb.encode(tokens, mask), 10)}
+        print(f"timing [{self.card}]: bi-encoder (shipped) {row}", flush=True)
+        query = corpus_gen.make_query(chunks[5], rng)
+        docs = [chunks[int(i)].text for i in rng.randint(len(chunks), size=32)]
+        default = ce.CrossEncoderScorer(seed=0, device=self.dev)
+        for label, scorer in (("shipped, interaction", models["scorer"]),
+                              ("default geometry, cls, random init", default)):
+            t0 = time.perf_counter()
+            tokens, mask = ce.tokenize_batch(query, docs, scorer.cfg.max_len)
+            tok_ms = 1e3 * (time.perf_counter() - t0)
+            cfg = scorer.cfg
+            passes = 2 if cfg.head_type == "interaction" else 1
+            ms = self._events_ms(lambda: scorer.logits(tokens, mask), 20)
+            score_ms = self._events_ms(lambda: scorer.score(query, docs), 5)
+            flops = _model_flops(cfg, cfg.max_len, passes) * len(docs)
+            row = {"batch": f"{len(docs)} x {cfg.max_len} tokens", "dtype": str(scorer.dtype),
+                   "ms": ms, "pairs_per_s": len(docs) * 1e3 / ms, "score_call_ms": score_ms,
+                   "host_tokenize_ms": tok_ms, "gflop": flops / 1e9,
+                   "bound_ms": 1e3 * flops / BF16_FLOPS_S,
+                   **self._model_profile(lambda: scorer.logits(tokens, mask), 10)}
+            print(f"timing [{self.card}]: cross-encoder ({label}) {row}", flush=True)
+
 
 def _check_exact(idx, vals, oi, ov, g, atol):
     """The repo's exactness contract (tests/test_bounded_topk.py
@@ -1687,6 +2116,22 @@ def _check_exact(idx, vals, oi, ov, g, atol):
     if not torch.allclose(vals.float(), ov, rtol=1e-5, atol=atol):
         raise AssertionError("values differ from the oracle")
     return int(diff.sum())
+
+
+def _model_flops(cfg, tokens, passes):
+    """Multiply-add FLOPs of one sequence of ``tokens`` through a tower
+    of ``cfg``: the qkv and out projections, ``passes`` attention passes
+    (scores and att @ v; the interaction head runs two, each with its
+    own out projection), the router and every expert (dense dispatch)
+    or the dense FFN."""
+    d, t = cfg.dim, tokens
+    hidden = d * cfg.mlp_ratio
+    per_token = 2 * d * 3 * d + passes * (4 * t * d + 2 * d * d)
+    if cfg.n_experts > 0:
+        per_token += 2 * d * cfg.n_experts + cfg.n_experts * 4 * d * hidden
+    else:
+        per_token += 4 * d * hidden
+    return per_token * t * cfg.n_layers
 
 
 def _post(port, path, body):
@@ -1827,6 +2272,7 @@ def main() -> int:
     smoke.exactness()
     smoke.exactness_int8()
     launches = smoke.main_path()
+    launches.update(smoke.models_path())
     kernels = []
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]
@@ -1837,6 +2283,7 @@ def main() -> int:
             "replaces": replaces,
             # 0: the float top-1 arm lies on no dispatched path
             "launches": launches.get(key, 0),
+            "launches_ingest_path": launches.get(("ingest", key), 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -1863,6 +2310,7 @@ def main() -> int:
         "replaces": "qrag_tpu/ops/pallas/gather_rows.py:34 (_gather_kernel), "
                     "qrag_tpu/ops/pallas/gather_rows.py:131 (_gather_bs_kernel)",
         "launches": launches["gather_rows"],
+        "launches_ingest_path": launches[("ingest", "gather_rows")],
         **{key: row[key] for key in gather_keys},
         "other_shapes": {
             f"M={m}": {key: smoke.kernel_rows[("gather_rows", m)][key] for key in gather_keys}

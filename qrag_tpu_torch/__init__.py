@@ -3,16 +3,20 @@
 Exact retrieval (norm-bounded window pruning over a device-resident
 corpus, bf16 or int8 scan), the int8-quantized index, and the fused
 quantum-fidelity rerank, served over HTTP, on PyTorch with hand-written
-CUDA C++ kernels for NVIDIA Hopper.  The JAX package ``qrag_tpu`` is the
-reference; this package imports nothing of jax or ``qrag_tpu``.
+CUDA C++ kernels for NVIDIA Hopper; the trained cross-encoder and
+bi-encoder at inference; the MCP ingestion tools and server.  The JAX
+package ``qrag_tpu`` is the reference; this package imports nothing of
+jax or ``qrag_tpu``, and no pydantic.
 
 Layer map (bottom-up):
   csrc/      CUDA C++ kernels (built with nvcc at first use)
   ops/       plain-torch ops and the kernels' wrappers
   index/     FAISS-format IO, device-resident flat and quantized indexes
+  models/    the trained cross-encoder and bi-encoder (inference)
   engine.py  retrieval + fused fidelity rerank
-  serving/   stdlib HTTP server
-  config.py, pipeline/, utils/   config tree, embedders, metrics
+  tools/     the ingestion tools (read, embed, store, search)
+  serving/   stdlib HTTP server, MCP server and client
+  config.py, pipeline/, utils/   config tree, embedders, storage, metrics
 """
 
 import torch

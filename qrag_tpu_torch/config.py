@@ -61,8 +61,9 @@ class ClassicalConfig:
     ``method`` selects the scorer:
       - "cosine": cosine similarity between embeddings (default here —
         the default here)
-      - "cross-encoder": the trained cross-encoder model (not ported
-        yet)
+      - "cross-encoder": the trained cross-encoder model
+        (``models/cross_encoder.py``), falling back to cosine if it
+        fails out
     """
 
     method: str = "cosine"

@@ -17,8 +17,8 @@ on int8 codes.
 Not ported yet (raise NotImplementedError): the sharded index
 (ROADMAP.md, Queue 1 slice 6); the full-statevector fidelity and the
 amplitude encoding (``use_analytic_fidelity=False``, slice 7); the
-cross-encoder scorer (slice 3); the fused reranks over a quantized
-index (slice 5: the reference runs them on the unported approx scan).
+fused reranks over a quantized index (slice 5: the reference runs them
+on the unported approx scan).
 """
 
 from __future__ import annotations
@@ -231,7 +231,7 @@ class QragEngine:
             )
         self.index = index
         self.device = index.device
-        self.embedder = embedder or get_embedder(self.config.embedding)
+        self.embedder = embedder or get_embedder(self.config.embedding, self.device)
         self.controller = controller or RerankerController(
             self.config, device=self.device
         )

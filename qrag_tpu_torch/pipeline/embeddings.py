@@ -19,6 +19,9 @@ Three providers behind one callable interface
   the API key from AWS SSM ``/openai/api_key`` (env fallback), chunking
   long texts and averaging chunk embeddings.  Gated on the optional
   ``openai``/``boto3`` packages; raises a clear error when absent.
+
+* "trained" — the bi-encoder (``models/bi_encoder.TrainedEmbedder``)
+  on ``device`` (CUDA unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -144,7 +147,9 @@ class OpenAIEmbedder:
         return np.stack(out) if out else np.zeros((0, self.dim), np.float32)
 
 
-def get_embedder(config: Optional[EmbeddingConfig] = None) -> Embedder:
+def get_embedder(config: Optional[EmbeddingConfig] = None, device=None) -> Embedder:
+    """The configured provider; ``device`` is where the trained
+    bi-encoder runs (the other providers run on the host)."""
     config = config or EmbeddingConfig()
     if config.provider == "mock":
         return MockEmbedder(dim=config.dim if config.dim else 8)
@@ -153,8 +158,13 @@ def get_embedder(config: Optional[EmbeddingConfig] = None) -> Embedder:
     if config.provider == "openai":
         return OpenAIEmbedder(config)
     if config.provider == "trained":
-        raise NotImplementedError(
-            "the trained bi-encoder embedder is not ported yet (ROADMAP.md, "
-            "Queue 1 slice 3); use provider 'hash' or 'mock'"
+        # config.model is the weights dir (random init when absent, as
+        # in the reference); without saved weights the projection width
+        # follows config.dim, so the index and the embedder agree
+        from qrag_tpu_torch.models.bi_encoder import BiEncoderConfig, TrainedEmbedder
+
+        weights = config.model if os.path.isdir(config.model) else None
+        return TrainedEmbedder(
+            cfg=BiEncoderConfig(out_dim=config.dim), weights_dir=weights, device=device
         )
     raise ValueError(f"unknown embedding provider {config.provider!r}")

@@ -348,7 +348,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--index", default=None, help=".faiss file or native dir")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument(
-        "--embedding-provider", default=None, choices=["mock", "hash", "openai"]
+        "--embedding-provider",
+        default=None,
+        choices=["mock", "hash", "openai", "trained"],
+        help="'trained': the bi-encoder, weights from QRAG_EMBEDDING_MODEL",
     )
     parser.add_argument(
         "--topk-mode",
@@ -383,6 +386,11 @@ def _parser() -> argparse.ArgumentParser:
         "approximate (block-int8, ~1%%)",
     )
     parser.add_argument("--no-warmup", action="store_true")
+    parser.add_argument(
+        "--reload",
+        action="store_true",
+        help="dev auto-reload: re-exec on a source change of the package",
+    )
     parser.add_argument(
         "--batching",
         action="store_true",
@@ -442,7 +450,8 @@ def main(argv=None) -> None:
             engine = QragEngine.load(args.index, device=args.device)
             if args.embedding_provider:
                 engine.embedder = get_embedder(
-                    replace(engine.config.embedding, provider=args.embedding_provider)
+                    replace(engine.config.embedding, provider=args.embedding_provider),
+                    engine.device,
                 )
         else:
             cls_, kw = _index_cls_and_kwargs(config)
@@ -460,6 +469,10 @@ def main(argv=None) -> None:
         engine, host, port, batching=args.batching,
         **({"max_pairs": max(config.serving.doc_buckets)} if args.batching else {}),
     )
+    if args.reload:
+        from qrag_tpu_torch.serving.devreload import start_reloader
+
+        start_reloader()
     if not args.no_warmup:
         threading.Thread(target=engine.warmup, daemon=True).start()
     logger.info("serving on %s:%d (index ntotal=%d)", host, port, engine.index.ntotal)

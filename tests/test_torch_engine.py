@@ -102,13 +102,14 @@ def test_bundle_written_by_port_reads_in_jax(engines, tmp_path):
 
 def test_unported_paths_raise(engines):
     _, te = engines
-    for over, match in (
-        ({"index": {"sharded": True}}, "slice 6"),
-        ({"embedding": {"provider": "trained", "dim": 8}}, "trained"),
-        ({"classical": {"method": "cross-encoder"}}, "slice 3"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            TEngine(config=QragConfig.from_dict(over), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        TEngine(config=QragConfig.from_dict({"index": {"sharded": True}}), device="cpu")
+    # the trained embedder and the cross-encoder scorer are ported now
+    trained = TEngine(config=QragConfig.from_dict(
+        {"embedding": {"provider": "trained", "dim": 8},
+         "classical": {"method": "cross-encoder"}}), device="cpu")
+    assert trained.embedder(["text"]).shape == (1, 8)
+    assert trained.controller.classical_reranker._active_method == "cross-encoder"
     te_sv = TEngine(
         config=QragConfig.from_dict({**CFG, "quantum": {"use_analytic_fidelity": False}}),
         index=te.index, device="cpu",
@@ -208,7 +209,8 @@ def test_server_flags_not_ported():
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imported in a fresh
-    interpreter: neither jax nor anything of the JAX package loads."""
+    interpreter: neither jax, nor anything of the JAX package, nor
+    pydantic loads."""
     code = (
         "import pkgutil, sys\n"
         "import qrag_tpu_torch, chip_smoke\n"
@@ -220,10 +222,14 @@ def test_port_imports_no_jax():
         "new = {'documents', 'reranker', 'reranker.classical', 'reranker.quantum',\n"
         "       'reranker.controller', 'serving.batcher', 'serving.app',\n"
         "       'ops.gather_rows', 'ops.scan_topk', 'ops.cuda.gather_rows',\n"
-        "       'ops.cuda.scan_topk', 'ops.cuda._launch', 'ops.cuda.launch_ab'}\n"
+        "       'ops.cuda.scan_topk', 'ops.cuda._launch', 'ops.cuda.launch_ab',\n"
+        "       'models.cross_encoder', 'models.bi_encoder', 'models.weights',\n"
+        "       'pipeline.storage', 'pipeline.corpus_gen', 'tools.interface',\n"
+        "       'tools.progress', 'tools.service', 'tools.ingest_tools',\n"
+        "       'serving.mcp_server', 'serving.mcp_client', 'serving.llm_orchestrator',\n"
+        "       'serving.devreload'}\n"
         "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'qrag_tpu' or m.startswith('qrag_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qrag_tpu', 'pydantic')]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -260,8 +266,10 @@ def test_framework_free_copies_match_reference():
     long = ("word. " * 3000) + ("x" * 9000) + ("line\n" * 2000)
     for max_tokens in (100, 1000, 8000):
         assert tchunk.chunk_text(long, max_tokens) == jchunk.chunk_text(long, max_tokens)
-    with pytest.raises(NotImplementedError):
-        temb.get_embedder(tconfig.EmbeddingConfig(provider="trained"))
+    trained = tconfig.EmbeddingConfig(provider="trained", dim=32, model="none")
+    ej = jemb.get_embedder(jconfig.EmbeddingConfig(provider="trained", dim=32, model="none"))
+    et = temb.get_embedder(trained, device="cpu")
+    assert et(texts).shape == ej(texts).shape == (3, 32)
     m = Metrics()
     with m.timer("search"):
         m.incr("requests", 2)

@@ -149,12 +149,12 @@ def test_controller_rerank_and_response_dict(reranker_type):
 
 
 def test_unported_scorers_raise():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ClassicalReranker(tconfig.ClassicalConfig(method="cross-encoder"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        RerankerController(
-            tconfig.QragConfig.from_dict({"classical": {"method": "cross-encoder"}}), device="cpu"
-        )
+    # the cross-encoder scorer is ported: it builds (lazily) and is routed to
+    ctl = RerankerController(
+        tconfig.QragConfig.from_dict({"classical": {"method": "cross-encoder"}}), device="cpu"
+    )
+    assert ctl.classical_reranker._active_method == "cross-encoder"
+    assert ctl.quantum_reranker.classical_fallback is ctl.classical_reranker
     for cfg in (tconfig.QuantumConfig(encoding="amplitude"),
                 tconfig.QuantumConfig(use_analytic_fidelity=False)):
         with pytest.raises(NotImplementedError, match="slice 7"):  # no silent fallback
