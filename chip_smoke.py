@@ -87,7 +87,26 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    /search_rerank "auto" (gather launches counted); then texts/s and
    pairs/s (shipped and default geometry) from CUDA events, the host's
    tokenization, the idle share and a ``torch.profiler`` split, each
-   beside its FLOP bound.
+   beside its FLOP bound;
+8. training at the shipped recipes' width (no kernel of ``csrc/`` lies
+   on it): the cross-encoder's listwise fine-tune
+   (``rerank_eval.train_cross_encoder``, Q=64: 4,096 pairs x 224 tokens
+   a step, warm-started from ``artifacts/bi_encoder``, AdamW, bf16) for
+   20 steps, and the bi-encoder's InfoNCE
+   (``recall_eval.train_bi_encoder``, 128 + 128 texts) for 50, each
+   held to (a) the CPU's f32 step from one state and batch (loss rtol
+   1e-4, gradients within 1e-3 of their largest entry), (b) the
+   CPU-fixed bf16 bounds against the card's f32 step, (c) finite losses,
+   moved parameters and finite gates, and for the cross-encoder (d) the
+   trained scorer saved and loaded through ``from_config`` scoring 100
+   pairs as the live module; then ``train_cli --remat`` for 40 steps
+   and ``--resume`` for 20 (its weights rerank through
+   ``ClassicalReranker``) and 10 steps of ``distill`` with both
+   artifacts; step ms (CUDA events, median of steps 5-20), pairs/s and
+   texts/s, peak memory, the FLOP bound, a ``torch.profiler`` split
+   (the backward's kernels by the forward part that made them, the
+   optimizer apart), the idle share and held-out nDCG@10 beside the
+   warm start's.
 
 The last line is the JSON result; the line before it lists the kernels,
 the line before that the card.  ``python3 chip_smoke.py --only
@@ -1979,17 +1998,24 @@ class Smoke:
               f"{gather_launches}", flush=True)
         return {("ingest", "gather_rows"): gather_launches}
 
-    def _model_profile(self, fn, calls):
+    def _model_profile(self, fn, calls, parts=None):
         """Device busy time, idle share and the device time of the
         model's parts (record_function ranges around attention, the MoE
-        products and the layer norms; the rest is elementwise work and
-        copies), from a ``torch.profiler`` trace of ``calls`` calls."""
+        products and the layer norms; in a train step the backward's
+        kernels go to the part whose forward op made them, by the
+        autograd sequence number, and the optimizer's apart; the rest is
+        elementwise work and copies), from a ``torch.profiler`` trace of
+        ``calls`` calls.  ``parts={}``: busy time and idle share only
+        (with remat, a backward would count its recomputed forward
+        twice)."""
         from torch.profiler import record_function
 
         from qrag_tpu_torch.models import cross_encoder as ce
 
-        parts = {"attention": (ce.Attention, ("project", "attend")),
-                 "moe": (ce.MoEFFN, ("forward",)), "layer_norm": (ce.LayerNorm, ("forward",))}
+        if parts is None:
+            parts = {"attention": (ce.Attention, ("project", "attend")),
+                     "moe": (ce.MoEFFN, ("forward",)),
+                     "layer_norm": (ce.LayerNorm, ("forward",))}
         saved = []
         try:
             return self._profile_parts(fn, calls, parts, saved, record_function)
@@ -2022,23 +2048,47 @@ class Smoke:
                 fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0) / calls
+
+        def device_ms(ev):
+            us = getattr(ev, "device_time_total", None)
+            return (ev.cuda_time_total if us is None else us) / 1e3
+
+        def range_of(ev):
+            while ev is not None and not ev.name.startswith("qrag::"):
+                ev = ev.cpu_parent
+            return ev and ev.name[6:]
+
+        events = prof.events()
+        # a backward node's evaluation carries the sequence number of the
+        # forward op that made the node
+        made_in = {}
+        for ev in events:
+            if (ev.device_type != DeviceType.CUDA and ev.sequence_nr >= 0
+                    and not ev.name.startswith("autograd::")):
+                label = range_of(ev)
+                if label:
+                    made_in[ev.sequence_nr] = label
         busy = 0.0
         split = {label: 0.0 for label in parts}
         by_kernel = {}
         n_kernels = 0
-        for ev in prof.events():
-            if ev.name.startswith("qrag::"):
+        for ev in events:
+            if ev.device_type == DeviceType.CUDA:
                 # the ranges show twice: as CPU ops whose device time is
                 # that of the kernels they launched, and as device-side
                 # annotations, which are no kernels
-                if ev.device_type != DeviceType.CUDA:
-                    us = getattr(ev, "device_time_total", None)
-                    split[ev.name[6:]] += (ev.cuda_time_total if us is None else us) / 1e3
-            elif ev.device_type == DeviceType.CUDA:
-                us = ev.time_range.elapsed_us()
-                busy += us / 1e3
-                n_kernels += 1
-                by_kernel[ev.name[:48]] = by_kernel.get(ev.name[:48], 0.0) + us / 1e3
+                if not ev.name.startswith("qrag::"):
+                    us = ev.time_range.elapsed_us()
+                    busy += us / 1e3
+                    n_kernels += 1
+                    by_kernel[ev.name[:48]] = by_kernel.get(ev.name[:48], 0.0) + us / 1e3
+            elif ev.name.startswith("qrag::"):
+                split[ev.name[6:]] += device_ms(ev)
+            elif ev.name.startswith("autograd::engine::evaluate_function"):
+                if ev.sequence_nr in made_in:
+                    split[made_in[ev.sequence_nr]] += device_ms(ev)
+            elif ev.name.startswith("Optimizer.step"):
+                split["optimizer"] = split.get("optimizer", 0.0) + device_ms(ev)
         if busy <= 0.0:
             return {"profile": "not measured (the profiler saw no device time)"}
         split = {k: round(v / calls, 4) for k, v in split.items()}
@@ -2096,6 +2146,383 @@ class Smoke:
                    "bound_ms": 1e3 * flops / BF16_FLOPS_S,
                    **self._model_profile(lambda: scorer.logits(tokens, mask), 10)}
             print(f"timing [{self.card}]: cross-encoder ({label}) {row}", flush=True)
+
+    # -------------------------------------------------------------- phase 8
+
+    def train_path(self):
+        """Training on the card at the shipped recipes' width: the
+        cross-encoder's listwise fine-tune (Q=64: 4,096 pairs x 224
+        tokens, warm-started from ``artifacts/bi_encoder``), the
+        bi-encoder's InfoNCE (128 + 128 texts x 128 tokens), the train
+        CLI with ``--remat`` and ``--resume``, and distillation with both
+        artifacts."""
+        t0 = time.perf_counter()
+        self._free()
+        self.rerank_training()
+        self._free()
+        self.recall_training()
+        self._free()
+        self.cli_training()
+        self.distill_training()
+        self._free()
+        print(f"phase 8 (training): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def _step_vs_cpu(self, label, build, loss_of, batch, rel_grad=1e-3, atol=1e-6):
+        """(a) One f32 step from one state and one batch on the card and
+        on the CPU: the loss within rtol 1e-4, each gradient leaf within
+        ``rel_grad`` of that leaf's largest entry plus ``atol`` (the
+        parity tests' form: a leaf whose exact gradient is zero, like the
+        CLS head at the warm start under a listwise softmax, holds f32
+        noise on both sides)."""
+        torch = self.torch
+        cpu = torch.device("cpu")
+        out = {}
+        for dev in (self.dev, cpu):
+            model = build(dev)
+            loss = loss_of(model, [t.to(dev) for t in batch], torch.float32)
+            loss.backward()
+            out[dev.type] = (float(loss.detach()), {n: p.grad.detach().to(cpu, torch.float64)
+                                           for n, p in model.named_parameters()})
+            del model, loss
+        (card_loss, card_g), (cpu_loss, cpu_g) = out[self.dev.type], out["cpu"]
+        # per leaf: (max |diff|, max |CPU entry|)
+        leaves = {n: (float((card_g[n] - g).abs().max()), float(g.abs().max()))
+                  for n, g in cpu_g.items()}
+        bad = [n for n, (err, scale) in leaves.items() if err > rel_grad * scale + atol]
+        # leaves whose largest entry is under atol / rel_grad hold f32
+        # noise (a gradient zero in exact arithmetic): atol judges them
+        held = {n: err / scale for n, (err, scale) in leaves.items() if rel_grad * scale > atol}
+        noise = sorted(set(leaves) - set(held))
+        worst = max(held, key=held.get)
+        loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        print(f"{label} (a) card f32 vs CPU f32, one step: loss {card_loss:.8f} vs "
+              f"{cpu_loss:.8f} (rel {loss_rel:.2e}, tolerance 1e-4); {len(held)} gradient "
+              f"leaves within {rel_grad} of their own largest entry: largest relative error "
+              f"{held[worst]:.2e} ({worst}); {len(noise)} at f32 noise {noise}, max |diff| "
+              f"{max([leaves[n][0] for n in noise], default=0.0):.3e} (atol {atol})",
+              flush=True)
+        if not (loss_rel <= 1e-4 and not bad):
+            raise AssertionError(f"{label}: the card's f32 step differs from the CPU's "
+                                 f"(leaves {bad})")
+
+    def _bf16_vs_f32(self, label, build, loss_of, loss_rtol, cos_floor):
+        """(b) The same step in bf16 and in f32 on the card
+        (``ce.bf16_step_deviation``): the loss within ``loss_rtol`` of the
+        f32 loss, the gradients' cosine at or above ``cos_floor`` (bounds
+        fixed on the CPU, tests/test_torch_train.py); the peak memory of
+        the pair."""
+        torch = self.torch
+        from qrag_tpu_torch.models import cross_encoder as ce
+
+        torch.cuda.reset_peak_memory_stats()
+        rel, cos = ce.bf16_step_deviation(build, loss_of)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label} (b) card bf16 vs card f32, one step: loss rel {rel:.2e} (bound "
+              f"{loss_rtol}); gradient cosine {cos:.6f} (floor {cos_floor}); peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        if not (rel <= loss_rtol and cos >= cos_floor):
+            raise AssertionError(f"{label}: bf16 step beyond the CPU-fixed bounds")
+
+    def _timed_steps(self, step, batches):
+        """One ``step(*batch)`` per batch: per-step ms between CUDA
+        events and the losses."""
+        torch = self.torch
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(batches) + 1)]
+        losses = []
+        ev[0].record()
+        for i, batch in enumerate(batches):
+            losses.append(step(*batch))
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(batches))], [
+            float(loss) for loss in losses]
+
+    def _moved(self, label, before, after, gates=(), zero_grad=()):
+        """(c) Every parameter leaf moved, the gates stayed finite
+        (``zero_grad``: leaves whose gradient is zero in exact
+        arithmetic, which may stay)."""
+        still = [n for n in before
+                 if n not in zero_grad and np.array_equal(before[n], after[n])]
+        bad = [n for n in gates if not np.isfinite(after[n]).all()]
+        if still or bad:
+            raise AssertionError(f"{label}: unmoved {still}, non-finite gates {bad}")
+
+    def rerank_training(self, steps=20, q=64):
+        """The shipped cross-encoder's recipe (``rerank_eval
+        --episodes 48 --extra-train-episodes 192``, warm start from
+        ``artifacts/bi_encoder``, AdamW 3e-4 with decay 1e-4) at Q=64 with
+        bf16 activations: checks (a)-(d), then step ms, pairs/s, peak
+        memory, the FLOP bound, a profiler split and held-out nDCG@10."""
+        import os
+        import shutil
+        import statistics
+        import tempfile
+
+        torch = self.torch
+        from qrag_tpu_torch.config import ClassicalConfig
+        from qrag_tpu_torch.models import cross_encoder as ce
+        from qrag_tpu_torch.models import rerank_eval as rev
+        from qrag_tpu_torch.models.weights import ordered_parameters
+        from qrag_tpu_torch.pipeline import corpus_gen
+
+        cfg = rev.RerankEvalConfig(steps=steps, batch=q, extra_train_episodes=192)
+        chunks = corpus_gen.generate_corpus(cfg.n_episodes, cfg.chunks_per_episode, seed=cfg.seed)
+        train_idx, hold_idx = corpus_gen.split_by_episode(chunks, cfg.holdout_frac,
+                                                          seed=cfg.seed + 1)
+        pool = chunks + corpus_gen.generate_corpus(cfg.extra_train_episodes,
+                                                   cfg.chunks_per_episode, seed=cfg.seed + 201)
+        fit_idx = list(train_idx) + list(range(len(chunks), len(pool)))
+        ce_cfg = rev._make_cfg(cfg)
+        warm = rev.warm_start_params(ce_cfg, rev.resolve_init_from(cfg.init_from))
+        # the groups train_cross_encoder draws, tokenized on the host
+        t0 = time.perf_counter()
+        grids = rev.group_grids(cfg, pool, fit_idx, steps)
+        tok_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+        def build(dev):
+            return ce.trainable(ce.load_module(
+                ce.CrossEncoder(ce_cfg, pos_rows=warm["pos_emb"].shape[0]), warm), dev)
+
+        def loss_of(model, batch, dtype):
+            return rev.listwise_loss(model, *batch, dtype)
+
+        label = f"cross-encoder listwise (interaction, dim 128, 4 experts, {cfg.max_len} tokens)"
+        # from the warm start and the first (hard) group of the timed
+        # run: (a) on its first 4 query rows against all Q documents (the
+        # rows of the listwise loss are independent; the whole group
+        # would take the CPU minutes), (b) on the whole group
+        toks, masks = grids[0]
+        rows = min(4, q)
+        self._step_vs_cpu(label, build, loss_of, list(ce.device_batch(
+            torch.device("cpu"), toks[:rows], masks[:rows], np.zeros((rows, q)))))
+        b16 = ce.device_batch(self.dev, toks, masks, np.zeros((q, q)))
+        self._bf16_vs_f32(label, lambda: build(self.dev),
+                          lambda m, dtype: rev.listwise_loss(m, *b16, dtype),
+                          ce.BF16_STEP_LOSS_RTOL, ce.BF16_GRAD_COSINE_FLOOR)
+        del b16
+        self._free()
+
+        # the run: 20 steps through the entry point
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scorer, trace = rev.train_cross_encoder(cfg, pool, fit_idx, device=self.dev)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        trained = scorer.params()
+        if scorer.dtype != ce.default_dtype(self.dev) or not all(np.isfinite(v) for _, v in trace):
+            raise AssertionError(f"{label}: {scorer.dtype}, trace {trace}")
+        # the CLS bias shifts every logit of a softmax row alike
+        self._moved(label, warm, trained, [f"layers.{i}.xgate" for i in range(ce_cfg.n_layers)],
+                    zero_grad=("head.b",))
+        print(f"{label} (c) train_cross_encoder Q={q} ({q * q} pairs a step) on {self.dev}: "
+              f"{steps} steps in {run_s:.2f} s (host group draw + tokenization {tok_ms:.1f} ms "
+              f"a step), "
+              f"trace {trace}, every leaf moved, xgate "
+              f"{[float(trained[f'layers.{i}.xgate']) for i in range(ce_cfg.n_layers)]}; "
+              f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+
+        # (d) saved and loaded through the reranker's cache layout
+        tmp = tempfile.mkdtemp(prefix="qrag_train_")
+        try:
+            scorer.save(os.path.join(tmp, "cross_encoder"))
+            loaded = ce.CrossEncoderScorer.from_config(
+                ClassicalConfig(method="cross-encoder", model_cache_dir=tmp,
+                                model_name="cross_encoder"), device=self.dev)
+            rng = np.random.RandomState(5)
+            query = corpus_gen.make_query(chunks[int(hold_idx[0])], rng)
+            docs = [pool[int(i)].text for i in rng.randint(len(pool), size=100)]
+            diff = float(np.abs(loaded.score(query, docs) - scorer.score(query, docs)).max())
+            if loaded.cfg != ce_cfg or diff > 1e-6:
+                raise AssertionError(f"{label}: loaded scorer {loaded.cfg}, max diff {diff}")
+            print(f"{label} (d) saved + loaded via CrossEncoderScorer.from_config: 100 pairs, "
+                  f"max |score diff| to the live module {diff:.2e}", flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # held-out quality beside the step-0 warm start (reported)
+        cases = rev._eval_cases(cfg, chunks, hold_idx)
+        warm_scorer = ce.CrossEncoderScorer(ce_cfg, params=warm, device=self.dev)
+        quality = {f"after_{steps}_steps": rev.eval_ranker(scorer.score, chunks, cases),
+                   "warm_start_step0": rev.eval_ranker(warm_scorer.score, chunks, cases)}
+        print(f"{label}: held-out rerank quality over {len(cases)} cases x "
+              f"{cfg.candidates} candidates {quality}", flush=True)
+        del scorer, loaded, warm_scorer
+        self._free()
+
+        # timing: the same 20 steps again from the warm start, batches
+        # already on the card
+        model = build(self.dev)
+        opt = torch.optim.AdamW(ordered_parameters(model, ce_cfg), lr=cfg.lr,
+                                weight_decay=ce.ADAMW_DECAY)
+        step = rev.make_listwise_step(model, opt, ce.default_dtype(self.dev))
+        teacher = torch.zeros((q, q), device=self.dev)
+        batches = [(*ce.device_batch(self.dev, t, m), teacher) for t, m in grids]
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = self._timed_steps(step, batches)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)) or abs(losses[0] - trace[0][1]) > 1e-3 * abs(
+                trace[0][1]) + 1e-6:
+            raise AssertionError(f"{label}: timing-run losses {losses} vs trace {trace}")
+        step_ms = statistics.median(ms[4:])
+        flops = 3 * _model_flops(ce_cfg, cfg.max_len, passes=2) * q * q
+        row = {"step_ms_median_5_20": step_ms, "step_ms": [round(m, 2) for m in ms],
+               "pairs_per_s": q * q * 1e3 / step_ms, "peak_memory_gib": peak / 2**30,
+               "tflop_per_step": flops / 1e12, "flop_bound_ms": 1e3 * flops / BF16_FLOPS_S,
+               "share_of_bound": 1e3 * flops / BF16_FLOPS_S / step_ms,
+               "host_draw_tokenize_ms_per_step": tok_ms,
+               "losses": [round(x, 5) for x in losses],
+               **self._model_profile(lambda: step(*batches[0]), 3)}
+        print(f"timing [{self.card}]: cross-encoder train step Q={q} ({q * q} pairs x "
+              f"{cfg.max_len} tokens, bf16) {row}", flush=True)
+        del model, opt, step, batches
+
+    def recall_training(self, steps=50, timed=20):
+        """The shipped bi-encoder's recipe (``recall_eval``: batch 128, 128
+        tokens, dim 128, 4 heads, 2 layers, 4 experts, ``out_dim`` 128,
+        Adam 1e-3) for 50 steps: checks (a)-(c), recall@10, texts/s."""
+        import statistics
+
+        torch = self.torch
+        from qrag_tpu_torch.models import bi_encoder as be
+        from qrag_tpu_torch.models import cross_encoder as ce
+        from qrag_tpu_torch.models import recall_eval as rcl
+        from qrag_tpu_torch.models.weights import ordered_parameters
+        from qrag_tpu_torch.pipeline import corpus_gen
+
+        cfg = rcl.RecallEvalConfig(batch=128, steps=steps)
+        chunks = corpus_gen.generate_corpus(cfg.n_episodes, cfg.chunks_per_episode, seed=cfg.seed)
+        train_idx, hold_idx = corpus_gen.split_by_episode(chunks, cfg.holdout_frac,
+                                                          seed=cfg.seed + 1)
+        pairs = corpus_gen.training_pairs(chunks, train_idx, n_pairs=steps * cfg.batch,
+                                          seed=cfg.seed + 2)
+        bi_cfg = rcl._bi_config(cfg)
+        init = be.init_params(bi_cfg, cfg.seed)
+        texts = [(be.tokenize_texts(qs, cfg.max_len), be.tokenize_texts(ds, cfg.max_len))
+                 for qs, ds in rcl._doc_batches(cfg, pairs)][:timed]
+
+        def build(dev):
+            return ce.trainable(ce.load_module(be.BiEncoder(bi_cfg), init), dev)
+
+        def loss_of(model, batch, dtype):
+            return be.info_nce_loss(model, *batch, dtype)
+
+        label = f"bi-encoder InfoNCE ({cfg.batch} + {cfg.batch} texts x {cfg.max_len} tokens)"
+        (qt, qm), (dt, dm) = texts[0]
+        cpu = self.torch.device("cpu")
+        self._step_vs_cpu(label, build, loss_of,
+                          [*ce.device_batch(cpu, qt, qm), *ce.device_batch(cpu, dt, dm)])
+        batch = [*ce.device_batch(self.dev, qt, qm), *ce.device_batch(self.dev, dt, dm)]
+        self._bf16_vs_f32(label, lambda: build(self.dev), lambda m, dtype: loss_of(m, batch, dtype),
+                          be.BF16_STEP_LOSS_RTOL, be.BF16_GRAD_COSINE_FLOOR)
+        t0 = time.perf_counter()
+        embedder, trace = rcl.train_bi_encoder(cfg, pairs, device=self.dev)
+        run_s = time.perf_counter() - t0
+        if embedder.dtype != ce.default_dtype(self.dev) or not all(
+                np.isfinite(v) for _, v in trace):
+            raise AssertionError(f"{label}: {embedder.dtype}, trace {trace}")
+        self._moved(label, init, embedder.params())
+        recall = rcl.recall_at_k(embedder, chunks, hold_idx, cfg.k, cfg.queries_per_chunk,
+                                 device=self.dev)
+        print(f"{label} (c) train_bi_encoder on {self.dev}: {steps} steps in {run_s:.2f} s, "
+              f"trace {trace}, every leaf moved; held-out recall@{cfg.k} {recall:.4f}",
+              flush=True)
+        model = build(self.dev)
+        step = be.make_train_step(model, torch.optim.Adam(ordered_parameters(model, bi_cfg),
+                                                          lr=cfg.lr), ce.default_dtype(self.dev))
+        batches = [(*ce.device_batch(self.dev, qt, qm), *ce.device_batch(self.dev, dt, dm))
+                   for (qt, qm), (dt, dm) in texts]
+        ms, losses = self._timed_steps(step, batches)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: timing-run losses {losses}")
+        step_ms = statistics.median(ms[4:])
+        flops = 3 * _model_flops(bi_cfg.tower, cfg.max_len, passes=1) * 2 * cfg.batch
+        row = {"step_ms_median_5_20": step_ms, "texts_per_s": 2 * cfg.batch * 1e3 / step_ms,
+               "gflop_per_step": flops / 1e9, "flop_bound_ms": 1e3 * flops / BF16_FLOPS_S,
+               **self._model_profile(lambda: step(*batches[0]), 5)}
+        print(f"timing [{self.card}]: bi-encoder train step {row}", flush=True)
+
+    def cli_training(self):
+        """``train_cli --device cuda --steps 40 --remat`` with the CLI's
+        defaults, then ``--resume`` for 20 more; the weights score
+        through ``ClassicalReranker(method="cross-encoder")``."""
+        import io
+        import os
+        import shutil
+        import statistics
+        import tempfile
+
+        torch = self.torch
+        from qrag_tpu_torch.config import ClassicalConfig
+        from qrag_tpu_torch.documents import Document
+        from qrag_tpu_torch.models import train_cli
+        from qrag_tpu_torch.models.cross_encoder import CrossEncoderConfig, default_dtype
+        from qrag_tpu_torch.parallel.train import make_trainer, synthetic_batch
+        from qrag_tpu_torch.reranker.classical import ClassicalReranker
+
+        tmp = tempfile.mkdtemp(prefix="qrag_cli_")
+        try:
+            out = os.path.join(tmp, "cli-cross-encoder")
+            args = ["--device", self.dev.type, "--remat", "--out", out]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(args + ["--steps", "40"])
+                train_cli.main(args + ["--steps", "20", "--resume", out + ".ckpt"])
+            cli_s = time.perf_counter() - t0
+            log = buf.getvalue()
+            with open(os.path.join(out + ".ckpt", "config.json")) as f:
+                meta = json.load(f)
+            on = "cuda:0" if self.dev.type == "cuda" else "cpu"
+            expect = (f"device: {on} (single device)", f"resumed from {out}.ckpt at step 40",
+                      "trained to step 60")
+            dtype = str(default_dtype(self.dev)).removeprefix("torch.")
+            if not all(e in log for e in expect) or meta["step"] != 60 or not (
+                    meta["config"]["remat"] and meta["config"]["dtype"] == dtype):
+                raise AssertionError(f"train_cli: {log} {meta}")
+            rr = ClassicalReranker(ClassicalConfig(method="cross-encoder", model_cache_dir=tmp,
+                                                   model_name="cli-cross-encoder"),
+                                   device=self.dev)
+            docs = [Document(str(i), t) for i, t in enumerate(
+                ["podcast sponsor deal offer", "climate news debate", "music guest interview",
+                 "sponsor podcast advert", "money health sport"])]
+            ranked = rr.rerank("sponsor podcast deal", docs, top_k=5)
+            if rr._active_method != "cross-encoder" or rr._cross_encoder.forward_calls < 1 or not all(
+                    0.0 < s < 1.0 for _, s in ranked):
+                raise AssertionError(f"train_cli weights: {rr._active_method} {ranked}")
+            lines = [ln for ln in log.splitlines() if ln.startswith(("step", "resumed"))]
+            print(f"train_cli --device {self.dev.type} --remat (defaults: 32 x 128, dim 128, "
+                  f"cls head): "
+                  f"40 + 20 resumed steps in {cli_s:.1f} s, {lines}; ClassicalReranker "
+                  f"cross-encoder order {[d.id for d, _ in ranked]}", flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        cfg = CrossEncoderConfig(dim=128, n_heads=4, n_layers=2, n_experts=4, max_len=128)
+        _, _, step = make_trainer(cfg, device=self.dev, remat=True)
+        rng = np.random.RandomState(0)
+        batches = [synthetic_batch(rng, 32, cfg.max_len) for _ in range(20)]
+        ms, losses = self._timed_steps(step, batches)
+        step_ms = statistics.median(ms[4:])
+        flops = 3 * _model_flops(cfg, cfg.max_len, passes=1) * 32
+        row = {"step_ms_median_5_20": step_ms, "pairs_per_s": 32e3 / step_ms,
+               "gflop_per_step": flops / 1e9, "flop_bound_ms": 1e3 * flops / BF16_FLOPS_S,
+               **self._model_profile(lambda: step(*batches[0]), 5, parts={})}
+        print(f"timing [{self.card}]: train_cli step (32 x 128, remat, host batches) {row}",
+              flush=True)
+
+    def distill_training(self):
+        """``distill`` for 10 steps, the student warm-started from and
+        taught by ``artifacts/bi_encoder`` (its geometry)."""
+        from qrag_tpu_torch.models import distill
+
+        t0 = time.perf_counter()
+        out, _, ce_cfg = distill.distill(distill.DistillConfig(
+            steps=10, dim=128, heads=4, layers=2, n_experts=4, max_len=128,
+            teacher_weights="artifacts/bi_encoder", init_from="artifacts/bi_encoder"),
+            device=self.dev)
+        if not all(np.isfinite(v) for _, v in out["loss_trace"]):
+            raise AssertionError(f"distill: {out}")
+        print(f"distill on {self.dev} (student {ce_cfg.head_type}, dim {ce_cfg.dim}), 10 steps "
+              f"in {time.perf_counter() - t0:.1f} s: {out}", flush=True)
 
 
 def _check_exact(idx, vals, oi, ov, g, atol):
@@ -2273,6 +2700,7 @@ def main() -> int:
     smoke.exactness_int8()
     launches = smoke.main_path()
     launches.update(smoke.models_path())
+    smoke.train_path()
     kernels = []
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]

@@ -1,13 +1,17 @@
-"""The trained bi-encoder at inference (PyTorch port of
-``qrag_tpu.models.bi_encoder``).
+"""The trained bi-encoder and its contrastive train step (PyTorch port
+of ``qrag_tpu.models.bi_encoder``).
 
 The cross-encoder's tower (byte tokens, pre-LN blocks, MoE or dense
 FFN) with masked mean pooling and a linear projection to ``out_dim``,
 L2-normalized.  `TrainedEmbedder` adapts trained weights to the
 pipeline's embedder interface (texts -> (N, dim) f32), so the engine,
 the ingestion tools and the MCP server embed with learned vectors
-(``embedding.provider="trained"``).  Inference only: the contrastive
-loss and the train step are not ported here (ROADMAP.md, Queue 1).
+(``embedding.provider="trained"``).  Training follows the reference's
+``info_nce_loss`` / ``make_train_step``: symmetric in-batch InfoNCE over
+``temperature * q @ d.T`` (log-softmax over both axes, the mean of the
+diagonal), one backward, one optimizer step; ``remat=True`` recomputes
+each block in the backward pass, as ``jax.checkpoint`` does in
+``encode``.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ from qrag_tpu_torch.models.cross_encoder import (
     Tower,
     _pool,
     _unit,
+    apply_gradients,
     default_dtype,
     load_module,
+    module_params,
 )
 from qrag_tpu_torch.models.weights import params_from_npz, params_to_npz
 
@@ -39,6 +45,15 @@ from qrag_tpu_torch.models.weights import params_from_npz, params_to_npz
 # from the same weights (shipped weights: 0.99986 at the least over 642
 # texts on the CPU; tests/test_torch_models.py holds it).
 BF16_COSINE_FLOOR = 0.999
+# How far bf16 activations may move one InfoNCE train step from the
+# same step at f32 (the shipped recipe's geometry): the loss relative to
+# the f32 loss, and the cosine between the two gradients over all
+# parameters.  Readings on the CPU over three inits x two batches of 32
+# (tests/test_torch_train.py::test_bf16_step_bounds): loss
+# 1.8e-5-0.0012, cosine at least 0.99995; the bounds leave twice the
+# worst reading.  chip_smoke.py holds the card to them.
+BF16_STEP_LOSS_RTOL = 0.0025
+BF16_GRAD_COSINE_FLOOR = 0.9999
 
 
 @dataclass
@@ -70,11 +85,59 @@ class BiEncoder(Tower):
                  pos_rows: Optional[int] = None):
         super().__init__(cfg.tower, gen, pos_rows)
         self.proj = Linear(cfg.tower.dim, cfg.out_dim, gen)
+        self.temperature = cfg.temperature
 
     def forward(self, tokens: torch.Tensor, mask: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        x = self.encode_plain(tokens, mask, dtype)
+                dtype: torch.dtype = torch.float32, remat: bool = False) -> torch.Tensor:
+        x = self.encode_plain(tokens, mask, dtype, remat)
         return _unit(_pool(x, mask > 0) @ self.proj.w + self.proj.b)
+
+
+def init_params(cfg: BiEncoderConfig, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random parameters drawn from ``torch.Generator(seed)`` (the
+    reference's scales; not jax.random's numbers)."""
+    return module_params(BiEncoder(cfg, torch.Generator().manual_seed(seed)))
+
+
+def info_nce_loss(model: BiEncoder, q_tokens, q_mask, d_tokens, d_mask,
+                  dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
+    """In-batch negatives, symmetric: row i's positive is column i."""
+    q = model(q_tokens, q_mask, dtype, remat)
+    d = model(d_tokens, d_mask, dtype, remat)
+    logits = model.temperature * (q @ d.T)
+    ce_qd = -torch.log_softmax(logits, dim=1).diagonal().mean()
+    ce_dq = -torch.log_softmax(logits, dim=0).diagonal().mean()
+    return 0.5 * (ce_qd + ce_dq)
+
+
+def make_train_step(model: BiEncoder, optimizer: torch.optim.Optimizer,
+                    dtype: torch.dtype = torch.float32, remat: bool = False):
+    """``train_step(q_tokens, q_mask, d_tokens, d_mask) -> loss``,
+    updating ``model`` in place (the reference's ``make_train_step``)."""
+
+    def train_step(q_tokens, q_mask, d_tokens, d_mask):
+        loss = info_nce_loss(model, q_tokens, q_mask, d_tokens, d_mask, dtype, remat)
+        return apply_gradients(optimizer, loss)
+
+    return train_step
+
+
+def synthetic_pairs(
+    rng: np.random.RandomState, batch: int, max_len: int = 128
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(query, positive doc) pairs from the shared synthetic task."""
+    from qrag_tpu_torch.parallel.train import _WORDS
+
+    qs, ds = [], []
+    for _ in range(batch):
+        qw = list(rng.choice(_WORDS, size=3, replace=False))
+        dw = qw + list(rng.choice(_WORDS, size=5))
+        rng.shuffle(dw)
+        qs.append(" ".join(qw))
+        ds.append(" ".join(dw))
+    qt, qm = tokenize_texts(qs, max_len)
+    dt, dm = tokenize_texts(ds, max_len)
+    return qt, qm, dt, dm
 
 
 class TrainedEmbedder:
@@ -128,7 +191,7 @@ class TrainedEmbedder:
         return np.concatenate(out, axis=0)
 
     def params(self) -> Dict[str, np.ndarray]:
-        return {k: v.detach().cpu().numpy() for k, v in self.model.state_dict().items()}
+        return module_params(self.model)
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)

@@ -1,4 +1,4 @@
-"""The trained cross-encoder at inference (PyTorch port of
+"""The trained cross-encoder and its train step (PyTorch port of
 ``qrag_tpu.models.cross_encoder``).
 
 A byte-level pre-LN transformer with a mixture-of-experts FFN scores
@@ -22,8 +22,17 @@ expert computes every token; GELU is the tanh form.  Activations are
 bf16 on a CUDA device and f32 on the CPU unless ``dtype`` says
 otherwise; parameters stay f32.
 
-Inference only: the loss, the train step and the sharding rules are
-not ported here (ROADMAP.md, Queue 1).
+Training follows the reference's ``bce_loss`` / ``make_train_step``:
+the pointwise BCE in the reference's own formula, one backward, one
+optimizer step.  The constructors make every parameter frozen (the scorer
+runs in ``inference_mode``); ``trainable`` turns gradients on, and an
+optimizer built over ``weights.ordered_parameters`` numbers its state
+in the ``.npz`` order, which ``weights.adam_state_from_optax`` and
+``models/checkpoint.py`` rely on.  ``remat=True`` recomputes each block
+of the "cls" path in the backward pass (``torch.utils.checkpoint``, as
+``jax.checkpoint`` does there); the interaction head, like the
+reference's, never reads it.  The sharding rules are not ported
+(ROADMAP.md, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from qrag_tpu_torch.device import resolve_device
 from qrag_tpu_torch.models.weights import params_from_npz, params_to_npz
@@ -95,6 +105,17 @@ class CrossEncoderConfig:
 # weights at f32 (shipped weights: at most 0.016 over 1,200 corpus
 # pairs on the CPU; tests/test_torch_models.py holds it).
 BF16_SCORE_ATOL = 0.03
+# How far bf16 activations may move one in-batch listwise train step
+# from the same step at f32 (the shipped recipe's geometry, warm-started
+# from the shipped bi-encoder): the loss relative to the f32 loss, and
+# the cosine between the two gradients over all parameters.  Readings on
+# the CPU over two corpora x four groups of Q = 8
+# (tests/test_torch_train.py::test_bf16_step_bounds): loss 0.0017-0.021,
+# cosine 0.99758-0.99992; the bounds leave about twice the worst reading
+# (loss 2.4x, cosine 2.1x its distance from 1).  chip_smoke.py holds
+# the card to them.
+BF16_STEP_LOSS_RTOL = 0.05
+BF16_GRAD_COSINE_FLOOR = 0.995
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -249,8 +270,9 @@ class Tower(nn.Module):
             self.iproj = Linear(cfg.dim, cfg.dim, gen)
 
     def encode_plain(self, tokens: torch.Tensor, mask: torch.Tensor,
-                     dtype: torch.dtype) -> torch.Tensor:
-        """Absolute positions, key-masked blocks, final LN (f32)."""
+                     dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
+        """Absolute positions, key-masked blocks, final LN (f32);
+        ``remat`` recomputes each block in the backward pass."""
         t = tokens.shape[1]
         if t > self.pos_emb.shape[0]:
             raise ValueError(
@@ -259,7 +281,10 @@ class Tower(nn.Module):
         x = (self.tok_emb[tokens] + self.pos_emb[None, :t]).to(dtype)
         allowed = (mask > 0)[:, None, None, :]
         for layer in self.layers:
-            x = layer(x, allowed)
+            if remat:
+                x = checkpoint(layer, x, allowed, use_reentrant=False)
+            else:
+                x = layer(x, allowed)
         return self.final_ln(x.float())
 
 
@@ -282,10 +307,10 @@ class CrossEncoder(Tower):
         self.head = Linear(cfg.dim, 1, gen)
 
     def forward(self, tokens: torch.Tensor, mask: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, remat: bool = False) -> torch.Tensor:
         if self.cfg.head_type == "interaction":
             return self._interaction(tokens, mask, dtype)
-        x = self.encode_plain(tokens, mask, dtype)
+        x = self.encode_plain(tokens, mask, dtype, remat)
         return x[:, 0, :] @ self.head.w[:, 0] + self.head.b[0]
 
     def _interaction(self, tokens, mask, dtype):
@@ -329,6 +354,85 @@ def load_module(module: nn.Module, params: Dict[str, np.ndarray]) -> nn.Module:
         strict=True,
     )
     return module
+
+
+def module_params(module: nn.Module) -> Dict[str, np.ndarray]:
+    """{dotted name: f32 array} of a module's parameters, on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+
+
+def init_params(cfg: CrossEncoderConfig, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random parameters drawn from ``torch.Generator(seed)`` (the
+    reference's scales; not jax.random's numbers)."""
+    return module_params(CrossEncoder(cfg, torch.Generator().manual_seed(seed)))
+
+
+def trainable(module: nn.Module, device) -> nn.Module:
+    """``module`` on ``device`` with gradients on every parameter."""
+    return module.to(device).requires_grad_(True)
+
+
+def device_batch(device: torch.device, tokens: np.ndarray, *floats: np.ndarray):
+    """Token ids (as int64) and f32 arrays on ``device``."""
+    return (torch.from_numpy(tokens).to(device).long(),
+            *(torch.from_numpy(np.asarray(a, np.float32)).to(device) for a in floats))
+
+
+# ----------------------------------------------------------------- training
+
+
+def bce_loss(model: CrossEncoder, tokens: torch.Tensor, mask: torch.Tensor,
+             labels: torch.Tensor, dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
+    """Pointwise BCE on the logits, the reference's formula:
+    ``mean(max(l, 0) - l*y + log1p(exp(-|l|)))``."""
+    logits = model(tokens, mask, dtype, remat)
+    return torch.mean(
+        logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    )
+
+
+# optax.adamw's default weight decay (torch.optim.AdamW's is 1e-2): the
+# reference's trainer takes the default, rerank_eval passes it
+ADAMW_DECAY = 1e-4
+
+
+def bf16_step_deviation(build, loss_of) -> Tuple[float, float]:
+    """``(|loss_bf16 - loss_f32| / |loss_f32|, gradient cosine)`` of one
+    step from the same parameters and batch, bf16 activations against
+    f32: ``build()`` gives a fresh trainable model, ``loss_of(model,
+    dtype)`` its loss; the cosine is over all parameters at once."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build()
+        loss = loss_of(model, dtype)
+        loss.backward()
+        out[dtype] = (float(loss.detach()),
+                      torch.cat([p.grad.flatten() for p in model.parameters()]).double())
+        del model, loss
+    (l32, g32), (l16, g16) = out[torch.float32], out[torch.bfloat16]
+    return abs(l16 - l32) / abs(l32), float(g32 @ g16 / (g32.norm() * g16.norm()))
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> torch.Tensor:
+    """One optimizer step on ``loss``'s gradients; the loss, detached
+    (still on the device: reading it waits for the step)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def make_train_step(model: CrossEncoder, optimizer: torch.optim.Optimizer,
+                    dtype: torch.dtype = torch.float32, remat: bool = False):
+    """``train_step(tokens, mask, labels) -> loss``, which updates
+    ``model`` in place through ``optimizer`` (the reference's
+    ``make_train_step(cfg, optimizer)``: the module holds what its
+    ``cfg`` and ``params`` held, the optimizer its ``opt_state``)."""
+
+    def train_step(tokens, mask, labels):
+        return apply_gradients(optimizer, bce_loss(model, tokens, mask, labels, dtype, remat))
+
+    return train_step
 
 
 # ------------------------------------------------------------------- scorer
@@ -424,7 +528,7 @@ class CrossEncoderScorer:
     # -- persistence: the JAX package's flat npz + config.json -----------
 
     def params(self) -> Dict[str, np.ndarray]:
-        return {k: v.detach().cpu().numpy() for k, v in self.model.state_dict().items()}
+        return module_params(self.model)
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)

@@ -12,14 +12,19 @@ and has ``proj`` before ``tok_emb``.
 
 This module rebuilds that order from the configuration alone (no jax):
 a leaf is named by its dotted path (``layers.0.attn.qkv.w``), which is
-also its key in the port's ``nn.Module`` state dict.
+also its key in the port's ``nn.Module`` state dict.  An optimizer built
+over ``ordered_parameters`` numbers its state in that order too, so the
+Adam moments of optax (``mu``, ``nu``, ``count``, trees of the
+parameters' shape) and of ``torch.optim`` (``exp_avg``, ``exp_avg_sq``,
+``step``) map leaf for leaf (``adam_state_from_optax`` and its inverse).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Mapping
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
+import torch
 
 
 def _tree(cfg) -> Dict[str, Any]:
@@ -98,3 +103,61 @@ def params_to_npz(params: Mapping[str, Any], cfg, path: str) -> None:
         path,
         **{f"p{i}": np.asarray(params[name]) for i, name in enumerate(param_paths(cfg))},
     )
+
+
+def ordered_parameters(module: torch.nn.Module, cfg) -> List[torch.nn.Parameter]:
+    """The module's parameters in the ``.npz`` order: an optimizer built
+    over them keys its state ``0 ... N`` as the file keys ``p0 ... pN``."""
+    return [module.get_parameter(name) for name in param_paths(cfg)]
+
+
+def _fill(tree: Any, leaves: Iterator) -> Any:
+    """``tree``'s structure with its leaves taken from ``leaves`` in
+    ``tree_flatten`` order."""
+    if isinstance(tree, Mapping):
+        return {key: _fill(tree[key], leaves) for key in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_fill(sub, leaves) for sub in tree]
+    return next(leaves)
+
+
+def adam_state(mu: List[Any], nu: List[Any], count: int) -> Dict[int, Dict[str, torch.Tensor]]:
+    """The ``state`` of a ``torch.optim.Adam``/``AdamW`` state dict from
+    first and second moments in ``param_paths`` order and the number of
+    steps taken (optax's ``count``, after its increment)."""
+    return {
+        i: {"step": torch.tensor(float(count)),
+            "exp_avg": torch.tensor(np.asarray(m, np.float32)),
+            "exp_avg_sq": torch.tensor(np.asarray(v, np.float32))}
+        for i, (m, v) in enumerate(zip(mu, nu))
+    }
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, state: Dict[int, Dict[str, torch.Tensor]]) -> None:
+    """Replace ``optimizer``'s per-parameter state (moved to each
+    parameter's device by ``load_state_dict``)."""
+    full = optimizer.state_dict()
+    full["state"] = state
+    optimizer.load_state_dict(full)
+
+
+def adam_state_from_optax(mu_tree: Mapping[str, Any], nu_tree: Mapping[str, Any],
+                          count: int, cfg) -> Dict[int, Dict[str, torch.Tensor]]:
+    """optax's Adam state (``mu`` and ``nu`` as numpy trees of the
+    parameters' structure, ``count``) as the ``state`` of a
+    ``torch.optim`` Adam/AdamW over ``ordered_parameters(module, cfg)``;
+    give it to ``load_adam_state``."""
+    mu, nu = params_from_jax_tree(mu_tree, cfg), params_from_jax_tree(nu_tree, cfg)
+    paths = param_paths(cfg)
+    return adam_state([mu[p] for p in paths], [nu[p] for p in paths], count)
+
+
+def adam_state_to_optax(state: Mapping[int, Mapping[str, torch.Tensor]], cfg) -> Tuple[Any, Any, int]:
+    """The inverse of ``adam_state_from_optax``: ``(mu_tree, nu_tree,
+    count)`` as numpy trees of the parameters' structure."""
+    n = len(param_paths(cfg))
+    if sorted(state) != list(range(n)):
+        raise ValueError(f"optimizer state holds {len(state)} of the {n} parameters")
+    mu = (state[i]["exp_avg"].detach().cpu().numpy() for i in range(n))
+    nu = (state[i]["exp_avg_sq"].detach().cpu().numpy() for i in range(n))
+    return _fill(_tree(cfg), mu), _fill(_tree(cfg), nu), int(state[0]["step"])

@@ -210,7 +210,7 @@ def test_server_flags_not_ported():
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     interpreter: neither jax, nor anything of the JAX package, nor
-    pydantic loads."""
+    pydantic, optax, orbax or flax loads."""
     code = (
         "import pkgutil, sys\n"
         "import qrag_tpu_torch, chip_smoke\n"
@@ -227,9 +227,12 @@ def test_port_imports_no_jax():
         "       'pipeline.storage', 'pipeline.corpus_gen', 'tools.interface',\n"
         "       'tools.progress', 'tools.service', 'tools.ingest_tools',\n"
         "       'serving.mcp_server', 'serving.mcp_client', 'serving.llm_orchestrator',\n"
-        "       'serving.devreload'}\n"
+        "       'serving.devreload', 'parallel', 'parallel.train', 'models.checkpoint',\n"
+        "       'models.train_cli', 'models.recall_eval', 'models.rerank_eval',\n"
+        "       'models.distill'}\n"
         "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'qrag_tpu', 'pydantic')]\n"
+        "banned = ('jax', 'qrag_tpu', 'pydantic', 'optax', 'orbax', 'flax')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -434,3 +434,41 @@ def test_gpu_launch_counter_exact_under_threads(cuda):
         t.join()
     torch.cuda.synchronize()
     assert cg.launches == before + 800
+
+
+@pytest.mark.gpu
+def test_gpu_train_steps_hold_bf16_bounds(cuda):
+    """One listwise step of the shipped recipe (warm start, the first
+    hard group of Q = 8, 224 tokens) and one InfoNCE step (batch 32, 128
+    tokens) on the card, bf16 against f32: within the bounds fixed on the
+    CPU (tests/test_torch_train.py::test_bf16_step_bounds)."""
+    from qrag_tpu_torch.models import bi_encoder as be
+    from qrag_tpu_torch.models import cross_encoder as ce
+    from qrag_tpu_torch.models import recall_eval as rcl
+    from qrag_tpu_torch.models import rerank_eval as rev
+    from qrag_tpu_torch.pipeline import corpus_gen
+
+    cfg = rev.RerankEvalConfig(batch=8)
+    ce_cfg = rev._make_cfg(cfg)
+    warm = rev.warm_start_params(ce_cfg, "artifacts/bi_encoder")
+    chunks = corpus_gen.generate_corpus(48, 8, seed=0)
+    train_idx, _ = corpus_gen.split_by_episode(chunks, 0.25, seed=1)
+    toks, masks = rev.group_grids(cfg, chunks, train_idx, 1)[0]
+    batch = ce.device_batch(cuda, toks, masks, np.zeros((8, 8), np.float32))
+    dev, cos = ce.bf16_step_deviation(
+        lambda: ce.trainable(ce.load_module(ce.CrossEncoder(ce_cfg, pos_rows=128), warm), cuda),
+        lambda m, dtype: rev.listwise_loss(m, *batch, dtype),
+    )
+    assert dev <= ce.BF16_STEP_LOSS_RTOL and cos >= ce.BF16_GRAD_COSINE_FLOOR, (dev, cos)
+    rcfg = rcl.RecallEvalConfig(batch=32)
+    bi_cfg = rcl._bi_config(rcfg)
+    init = be.init_params(bi_cfg, 0)
+    pairs = corpus_gen.training_pairs(chunks, train_idx, n_pairs=2000, seed=2)
+    qs, ds = next(rcl._doc_batches(rcfg, pairs))
+    texts = (*ce.device_batch(cuda, *be.tokenize_texts(qs, 128)),
+             *ce.device_batch(cuda, *be.tokenize_texts(ds, 128)))
+    dev, cos = ce.bf16_step_deviation(
+        lambda: ce.trainable(ce.load_module(be.BiEncoder(bi_cfg), init), cuda),
+        lambda m, dtype: be.info_nce_loss(m, *texts, dtype),
+    )
+    assert dev <= be.BF16_STEP_LOSS_RTOL and cos >= be.BF16_GRAD_COSINE_FLOOR, (dev, cos)
