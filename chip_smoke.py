@@ -108,10 +108,37 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    optimizer apart), the idle share and held-out nDCG@10 beside the
    warm start's.
 
+9. the small-batch accelerator, the native host store and the full
+   quantum paths (``accel_quantum_path``; no kernel of ``csrc/`` lies on
+   the accelerator's or the statevector's path): (a) 1,048,576 x 768
+   f32 unit rows of ``bench.py``'s clustered recipe (256 centers, spread
+   0.25/sqrt(d)) in an index with ``small_batch_accel="clustered"``
+   (L=512, S=auto), its build timed; every ``index.search`` at B = 1, 4,
+   8, 16 (k=10) and B=1 (k=100), and the op at B = 32, 64, equal to the
+   f32 oracle (``_check_exact``), escalations and fallbacks counted;
+   then per B the accelerator against the same index on the bounded
+   path, its group read beside the bound, a ``torch.profiler`` idle
+   share at B=1 and the crossover; (b) the same over 1,048,576 uniform
+   unit rows, where every batch takes the ladder and stays exact; (c)
+   ``clustered_probe`` recall@10 at budgets 8, 20, 80; (d)
+   ``/search_rerank`` B=1 candidates=100 through ``create_server`` with
+   the accelerator: candidates equal the bounded engine's, ``/stats``
+   carries its counters; (f) the fused rerank B=64 C=100 with the full
+   statevector at n_qubits 4, 10, 16 against the analytic path (same
+   top-10 but for ties within 1e-5, fidelities within 1e-5),
+   ``fidelity_statevector`` against numpy complex128, ``/rerank`` of 100
+   documents with ``encoding="amplitude"`` against its f64 value, the
+   times beside the analytic path's; (e) a 200,000 x 256 native host
+   store: ``scan_topk`` and ``cluster_topk`` give one identity and
+   ``to_device_index().search`` on the card equals it; host ms.  The
+   kernels line gives each kernel's launches on the accelerator's and
+   the statevector's runs.
+
 The last line is the JSON result; the line before it lists the kernels,
 the line before that the card.  ``python3 chip_smoke.py --only
-gather_vs_twin,scan_topk_vs_twin`` runs the build and the named phases
-alone and prints no result.
+gather_vs_twin,scan_topk_vs_twin`` (or ``--only accel_quantum_path``
+for phase 9) runs the build and the named phases alone and prints no
+result.
 """
 
 from __future__ import annotations
@@ -2524,6 +2551,487 @@ class Smoke:
         print(f"distill on {self.dev} (student {ce_cfg.head_type}, dim {ce_cfg.dim}), 10 steps "
               f"in {time.perf_counter() - t0:.1f} s: {out}", flush=True)
 
+    # -------------------------------------------------------------- phase 9
+
+    def accel_quantum_path(self):
+        """Phase 9: the small-batch clustered accelerator over a clustered
+        1,048,576 x 768 corpus (exactness, timings against the bounded
+        path, the probe arm's recall, the served rerank) and the full
+        quantum paths on it, the accelerator's ladder over uniform rows,
+        and the native host store.  Returns the kernel launches of the
+        accelerator's and the quantum paths' runs (none of them runs a
+        kernel of ``csrc/``: 0 expected)."""
+        t0 = time.perf_counter()
+        self._free()
+        launches = self.accel_path()
+        self._free()
+        self.ladder_path()
+        self._free()
+        self.native_store_path()
+        print(f"phase 9 (accelerator, native store, quantum paths): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return launches
+
+    def _all_launches(self, reset=False):
+        """Every hand-written kernel's launch count, under the keys of
+        the kernels line; ``reset`` sets them to 0 instead."""
+        from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.ops.cuda import gather_rows as cg
+        from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+        if reset:
+            fused_scan.reset_launches()
+            cg.reset_launches()
+            ct.reset_launches()
+            return None
+        return {**dict(fused_scan.launches), "gather_rows": cg.launches,
+                **{("scan_topk", arm): n for arm, n in ct.launches.items()}}
+
+    def _mixture(self, n, d, seed):
+        """``bench.py``'s clustered recipe on the card: max(16, n/4096)
+        unit centers, spread 0.25/sqrt(d), unit rows; returns the rows
+        and a query maker (the same centers, other draws)."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        n_centers = max(16, n // (512 * 8))
+        spread = 0.25 / float(np.sqrt(d))
+        centers = torch.randn((n_centers, d), generator=g, device=self.dev)
+        centers /= centers.norm(dim=1, keepdim=True)
+
+        def draw(m):
+            which = torch.randint(0, n_centers, (m,), generator=g, device=self.dev)
+            x = centers[which] + spread * torch.randn((m, d), generator=g, device=self.dev)
+            return x / x.norm(dim=1, keepdim=True)
+
+        x = draw(n)
+        return x, lambda m: draw(m).cpu().numpy()
+
+    def _check_accel(self, snap, q, idx, vals, k):
+        """Accelerator results (ORIGINAL indices, goodness) against the
+        f32 oracle of the stored rows under the exactness contract;
+        returns the sub-noise tie reorders."""
+        from qrag_tpu_torch.ops.topk import _goodness
+
+        qt, ov, oi = self._oracle(snap, q, k)
+        g = _goodness(qt, snap.matrix, "l2", snap.sqnorms, snap.valid)
+        return _check_exact(idx.to(self.dev), vals.to(self.dev), oi, ov, g, atol=1e-4)
+
+    def accel_path(self, n=1 << 20, d=768):
+        """(a) the clustered corpus: build, exactness at B = 1..16 (k=10)
+        and B=1 (k=100) through ``index.search``, B = 32 and 64 through
+        the op; (c) probe recall; (d) the served rerank; (f) the quantum
+        paths; then the timings against the bounded path."""
+        torch = self.torch
+        from qrag_tpu_torch.config import QragConfig
+        from qrag_tpu_torch.engine import QragEngine
+        from qrag_tpu_torch.ops import cluster_topk as ct
+
+        t0 = time.perf_counter()
+        x, queries = self._mixture(n, d, seed=42)
+        x_host = x.cpu().numpy()
+        del x
+        cfg = {"embedding": {"provider": "hash", "dim": d},
+               "index": {"small_batch_accel": "clustered"}}
+        engine = QragEngine(config=QragConfig.from_dict(cfg), device=self.dev)
+        index = engine.index
+        index.add(x_host)
+        del x_host
+        snap = index.device_buffers()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        groups = index.build_clustered()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        g_count, L = groups.centroids.shape[0], groups.group_rows
+        S = ct._auto_budget(10, L)
+        print(f"(a) clustered corpus [{self.card}]: {n:,} x {d} f32 unit rows "
+              f"({max(16, n // 4096)} centers, spread 0.25/sqrt(d)), setup {setup_s:.1f} s; "
+              f"accelerator build {build_s:.2f} s (k-means + permutation + stats): "
+              f"G={g_count} groups of L={L}, {groups.corpus_p.shape[0]:,} permuted rows, "
+              f"{int(groups.group_valid.sum())} valid groups, S={S} at k=10; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+        # the accelerator's main path: index.search and the served
+        # rerank, counts set to 0 just before and read just after
+        self._all_launches(reset=True)
+        ties, esc0, fb0 = 0, index.cluster_escalations, index.cluster_fallbacks
+        for b, k, reps in ((1, 10, 8), (4, 10, 4), (8, 10, 4), (16, 10, 4), (1, 100, 4)):
+            for _ in range(reps):
+                q = queries(b)
+                res = index.search(q, k)
+                ties += self._check_accel(snap, q, torch.from_numpy(res.indices).long(),
+                                          -torch.from_numpy(res.scores), k)
+        esc, fb = index.cluster_escalations - esc0, index.cluster_fallbacks - fb0
+        launches = {("accel", key): v for key, v in self.accel_served(engine, snap, queries).items()}
+        print(f"(a) index.search through the accelerator: 8 x B=1, 4 x B=4, 4 x B=8, "
+              f"4 x B=16 (k=10) and 4 x B=1 (k=100): identity equal to the f32 oracle "
+              f"(sub-noise tie reorders {ties}); escalations {esc}, fallbacks {fb} of 24 "
+              f"batches; kernel launches on the accelerator's path {launches}", flush=True)
+        for b in (32, 64):  # past accel_max_batch: through the op
+            q = queries(b)
+            vals, idx, fbk, escb = ct.cluster_pruned_topk(torch.from_numpy(q).to(self.dev), groups, 10)
+            t = self._check_accel(snap, q, idx, vals, 10)
+            print(f"(a) cluster_pruned_topk B={b} k=10: equal to the f32 oracle (tie reorders "
+                  f"{t}); escalated {escb}, fell back {fbk}", flush=True)
+        self.probe_recall(snap, groups, queries)
+        launches.update(self.quantum_paths(index, queries))
+        self.accel_timings(index, queries, g_count, L, d)
+        del engine, index, snap, groups
+        return launches
+
+    def accel_served(self, engine, snap, queries):
+        """(d) /search_rerank B=1 candidates=100 through ``create_server``
+        with the accelerator: the candidates equal the bounded engine's,
+        and /stats carries the accelerator's counters.  Returns the
+        kernel launches counted up to the accelerator's request (the
+        bounded comparison after it is not the accelerator's path)."""
+        torch = self.torch
+        from qrag_tpu_torch.engine import _fused_candidates
+
+        index = engine.index
+        q = queries(1)
+        with self._serve(engine) as port:
+            accel = _post(port, "/search_rerank", {"vectors": q.tolist(), "k": 10, "candidates": 100})
+            stats = _get(port, "/stats")["index"]
+            launched = self._all_launches()
+            index.small_batch_accel = "none"  # the same engine on the bounded path
+            try:
+                bounded = _post(port, "/search_rerank", {"vectors": q.tolist(), "k": 10,
+                                                         "candidates": 100})
+            finally:
+                index.small_batch_accel = "clustered"
+        qd = torch.from_numpy(q).to(self.dev)
+        mode, kw = engine._fused_candidate_mode(100, snap, batch=1)
+        mode_b, kw_b = engine._fused_candidate_mode(100, snap)
+        if (mode, mode_b) != ("clustered", "bounded"):
+            raise AssertionError(f"candidate modes {mode}, {mode_b}")
+        args = (qd, snap.matrix, snap.sqnorms, snap.valid, 100, "l2")
+        ra, ca = _fused_candidates(*args, mode, **kw)
+        rb, cb = _fused_candidates(*args, mode_b, **kw_b)
+        ties = self._check_accel(snap, q, ca, -ra, 100)
+        if not torch.equal(ca, cb):
+            raise AssertionError("the accelerator's candidates differ from the bounded engine's")
+        got = [[h["index"] for h in r] for r in accel["results"]]
+        want = [[h["index"] for h in r] for r in bounded["results"]]
+        if got != want or accel["reranker_used"] != "quantum":
+            raise AssertionError(f"/search_rerank with the accelerator {got} != bounded {want}")
+        np.testing.assert_allclose([h["score"] for h in accel["results"][0]],
+                                   [h["score"] for h in bounded["results"][0]], rtol=0, atol=1e-7)
+        keys = ("small_batch_accel", "cluster_escalations", "cluster_fallbacks")
+        if stats.get("small_batch_accel") != "clustered" or not all(k in stats for k in keys):
+            raise AssertionError(f"/stats: {stats}")
+        print(f"(d) served /search_rerank B=1 k=10 candidates=100 with small_batch_accel="
+              f"clustered: candidates equal to the bounded engine's (and the f32 oracle's "
+              f"top-100, tie reorders {ties}), reranked top-10 equal; /stats "
+              f"{ {k: stats[k] for k in keys} }", flush=True)
+        return launched
+
+    def probe_recall(self, snap, groups, queries):
+        """(c) ``clustered_probe`` (no certificates) recall@10 against the
+        f32 oracle at budgets 8, 20, 80, over 64 queries."""
+        torch = self.torch
+        from qrag_tpu_torch.ops import cluster_topk as ct
+
+        q = queries(64)
+        qd = torch.from_numpy(q).to(self.dev)
+        _, _, oi = self._oracle(snap, q, 10)
+        truth = oi.cpu().numpy()
+        rows = []
+        for budget in (8, 20, 80):
+            _, idx, _, _ = ct.cluster_pruned_topk(qd, groups, 10, budget=budget, certify=False)
+            ms = self._events_ms(
+                lambda: ct.cluster_pruned_topk(qd[:1], groups, 10, budget=budget, certify=False), 20)
+            rows.append((budget, _recall(idx.cpu().numpy(), truth), ms))
+        print(f"(c) clustered_probe recall@10 over 64 queries [{self.card}] (budget, recall, "
+              f"B=1 ms): {[(s, round(r, 4), round(m, 3)) for s, r, m in rows]}", flush=True)
+
+    def accel_timings(self, index, queries, g_count, L, d, reps=10):
+        """Per B: ``index.search`` k=10 through the accelerator against the
+        same index on the bounded path (the scan kernel's arm named), in
+        turns bounded, accel, accel, bounded; the accelerator's group
+        read (B*S*L*d*4 bytes) beside its bound at the card's memory
+        rate; a ``torch.profiler`` busy time and idle share at B=1, 16; the
+        crossover B against accel_max_batch=16."""
+        from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.ops import cluster_topk as ct
+
+        S = ct._auto_budget(10, L)
+        saved = (index.accel_max_batch, index.accel_read_cap)
+        index.accel_max_batch, index.accel_read_cap = 64, 0.0
+        rows = []
+        try:
+            for b in (1, 4, 8, 16, 32, 64):
+                qs = [queries(b) for _ in range(reps)]
+
+                def run(mode):
+                    index.small_batch_accel = mode
+                    try:
+                        t0 = time.perf_counter()
+                        for q in qs:
+                            index.search(q, 10)
+                        return 1e3 * (time.perf_counter() - t0) / reps
+                    finally:
+                        index.small_batch_accel = "clustered"
+
+                run("clustered")
+                arms = dict(fused_scan.arm_launches)
+                run("none")
+                arm = [a for a, c in fused_scan.arm_launches.items() if c != arms[a]]
+                esc0 = index.cluster_escalations
+                turns = [run("none"), run("clustered"), run("clustered"), run("none")]
+                bounded_ms = float(np.median([turns[0], turns[3]]))
+                accel_ms = float(np.median([turns[1], turns[2]]))
+                read = b * S * L * d * 4
+                rows.append((b, accel_ms, bounded_ms, arm, read, 1e3 * read / HBM_BYTES_S,
+                             index.cluster_escalations - esc0))
+        finally:
+            index.accel_max_batch, index.accel_read_cap = saved
+            index.small_batch_accel = "clustered"
+        for b, a, bd, arm, read, bound, esc in rows:
+            print(f"timing [{self.card}]: index.search B={b} k=10 accelerator {a:.3f} ms vs "
+                  f"bounded ({'/'.join(arm)} arm) {bd:.3f} ms, ratio {bd / a:.2f}x; group read "
+                  f"{read / 1e6:.1f} MB (S={S}, L={L}) bound {bound:.4f} ms at 3.35 TB/s; "
+                  f"escalations in {2 * reps} timed calls: {esc}", flush=True)
+        cross = next((f"from B={b}" for b, a, bd, *_ in rows if a >= bd), "at no B up to 64")
+        print(f"crossover [{self.card}]: the accelerator is as slow as the bounded path or "
+              f"slower {cross} (accel_max_batch=16)", flush=True)
+        for b in (1, 16):
+            self._accel_profile(index, queries, b)
+
+    def _accel_profile(self, index, queries, b, calls=10):
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        qs = [queries(b) for _ in range(calls)]
+        index.search(qs[0], 10)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for q in qs:
+                index.search(q, 10)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / calls
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        if not by_name:
+            print(f"profile accelerator B={b}: not measured (the profiler saw no device time)")
+            return
+        busy = sum(by_name.values()) / calls
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"profile [{self.card}]: accelerator index.search B={b} k=10, {calls} calls: wall "
+              f"{wall:.3f} ms/call, device busy {busy:.3f} ms/call, idle share "
+              f"{1 - busy / wall:.2f}; {sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) // calls} "
+              f"device ops/call; device ms/call by kernel: "
+              f"{[(name[:60], round(ms / calls, 4)) for name, ms in top]}", flush=True)
+
+    def ladder_path(self, n=1 << 20, d=768):
+        """(b) the accelerator over uniform unit rows: nothing prunes, so
+        every batch takes the ladder (tier 1, the 4x tier, the chunked
+        f32 fallback) and must stay exact; escalations and fallbacks
+        counted."""
+        torch = self.torch
+        from qrag_tpu_torch.index.flat_index import DeviceFlatIndex
+
+        g = torch.Generator(device=self.dev).manual_seed(7)
+        x = torch.randn((n, d), generator=g, device=self.dev)
+        x /= x.norm(dim=1, keepdim=True)
+        x_host = x.cpu().numpy()
+        del x
+        index = DeviceFlatIndex.from_numpy(x_host, small_batch_accel="clustered", device=self.dev)
+        del x_host
+        snap = index.device_buffers()
+        t0 = time.perf_counter()
+        index.build_clustered()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        qrng = np.random.default_rng(9)
+        ties, ms = 0, []
+        for b in (1, 1, 4, 16):
+            q = qrng.standard_normal((b, d), dtype=np.float32)
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            t1 = time.perf_counter()
+            res = index.search(q, 10)
+            ms.append((b, round(1e3 * (time.perf_counter() - t1), 3)))
+            ties += self._check_accel(snap, q, torch.from_numpy(res.indices).long(),
+                                      -torch.from_numpy(res.scores), 10)
+        print(f"(b) ladder [{self.card}]: {n:,} x {d} uniform unit rows, build {build_s:.2f} s; "
+              f"B=1, 1, 4, 16 k=10 equal to the f32 oracle (tie reorders {ties}); "
+              f"escalations {index.cluster_escalations}, fallbacks {index.cluster_fallbacks} "
+              f"of 4 batches; host ms per search {ms}", flush=True)
+        if index.cluster_fallbacks < 1:
+            print("(b) note: no batch fell back on uniform rows")
+        del index, snap
+
+    def native_store_path(self, n=200_000, d=256):
+        """(e) the native host store at the reference's host-tier size:
+        ``scan_topk`` and ``cluster_topk`` give the same identity, and
+        ``to_device_index().search`` on the card equals both; host ms."""
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        from qrag_tpu_torch.index import native_store as ns
+        from qrag_tpu_torch.ops.topk import _goodness
+
+        t0 = time.perf_counter()
+        ns.load_library()
+        build_s = time.perf_counter() - t0
+        x, queries = self._mixture(n, d, seed=11)
+        x = x.cpu().numpy()
+        tmp = tempfile.mkdtemp(prefix="qrag_store_")
+        try:
+            with ns.NativeVectorStore(f"{tmp}/store.qidx", d=d, metric="l2") as store:
+                store.append(x)
+                t1 = time.perf_counter()
+                clusters = store.build_clusters(rows_per_cluster=1024)
+                clusters_s = time.perf_counter() - t1
+                rows, ties = [], 0
+                device_index = store.to_device_index(device=self.dev)
+                for b in (1, 8):
+                    q = queries(b)
+                    scan_ms, clus_ms = [], []
+                    for _ in range(5):
+                        t1 = time.perf_counter()
+                        s0, i0 = store.scan_topk(q, 10)
+                        scan_ms.append(1e3 * (time.perf_counter() - t1))
+                        t1 = time.perf_counter()
+                        s1, i1, stats = store.cluster_topk(q, 10, clusters=clusters)
+                        clus_ms.append(1e3 * (time.perf_counter() - t1))
+                    if not np.array_equal(i0, i1):
+                        raise AssertionError(f"native cluster_topk != scan_topk at B={b}")
+                    res = device_index.search(q, 10)
+                    dsnap = device_index.device_buffers()
+                    qt = torch.from_numpy(q).to(self.dev)
+                    g = _goodness(qt, dsnap.matrix, "l2", dsnap.sqnorms, dsnap.valid)
+                    ov = -torch.from_numpy(s0).to(self.dev)
+                    ties += _check_exact(torch.from_numpy(res.indices).to(self.dev),
+                                         -torch.from_numpy(res.scores).to(self.dev),
+                                         torch.from_numpy(i0).to(self.dev), ov, g, atol=1e-4)
+                    rows.append((b, float(np.median(scan_ms)), float(np.median(clus_ms)),
+                                 stats.tolist()))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"(e) native store [{self.card} host]: g++ build {build_s:.1f} s; {n:,} x {d} "
+              f"mixture, host clusters G={clusters.cent.shape[0]} in {clusters_s:.1f} s; "
+              f"cluster_topk identity == scan_topk; to_device_index().search on {self.dev} "
+              f"equal (sub-noise tie reorders {ties}); host ms median of 5, single thread "
+              f"(B, scan_topk, cluster_topk, [fallback, escalated] queries): "
+              f"{[(b, round(s, 3), round(c, 3), st) for b, s, c, st in rows]}", flush=True)
+
+    def quantum_paths(self, index, queries):
+        """(f) the full quantum paths on the clustered corpus: the fused
+        /search_rerank B=64 C=100 with the full statevector at n_qubits
+        4, 10 and 16 against the analytic path (same top-10, fidelities
+        within 1e-5), ``fidelity_statevector`` against a numpy complex128
+        evaluation of the same circuit, and the amplitude encoding's
+        POST /rerank of 100 documents against its f64 value.  Returns the
+        kernel launches of the statevector reranks."""
+        torch = self.torch
+        from qrag_tpu_torch.config import QragConfig
+        from qrag_tpu_torch.engine import QragEngine
+        from qrag_tpu_torch.ops.statevector import fidelity_statevector
+
+        def engine(**quantum):
+            cfg = {"embedding": {"provider": "hash", "dim": index.d}, "quantum": quantum}
+            return QragEngine(config=QragConfig.from_dict(cfg), index=index, device=self.dev)
+
+        def hits(out):
+            return ([[h["index"] for h in r] for r in out["results"]],
+                    np.asarray([[h["score"] for h in r] for r in out["results"]]))
+
+        launches, rows = {}, []
+        q = queries(64)
+        for nq in (4, 10, 16):
+            sv = engine(n_qubits=nq, use_analytic_fidelity=False)
+            an = engine(n_qubits=nq)
+            self._all_launches(reset=True)
+            out_sv = sv.search_rerank(q, k=10, candidates=100)
+            for key, v in self._all_launches().items():
+                launches[("quantum", key)] = launches.get(("quantum", key), 0) + v
+            out_an = an.search_rerank(q, k=10, candidates=100)
+            (i_sv, s_sv), (i_an, s_an) = hits(out_sv), hits(out_an)
+            if out_sv["reranker_used"] != "quantum":
+                raise AssertionError(out_sv["reranker_used"])
+            reorders = _same_ranking(i_sv, s_sv, i_an, s_an, 1e-5)
+            err = float(np.abs(s_sv - s_an).max())
+            ms = {}
+            for name, eng in (("statevector", sv), ("analytic", an)):
+                t = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    eng.search_rerank(q, k=10, candidates=100)
+                    t.append(1e3 * (time.perf_counter() - t0))
+                ms[name] = float(np.median(t))
+            # the statevector against numpy complex128 on one query and 8 rows
+            v = queries(9)
+            got = fidelity_statevector(torch.from_numpy(v[0]).to(self.dev),
+                                       torch.from_numpy(v[1:]).to(self.dev), nq).cpu().numpy()
+            want = np.array([abs(np.vdot(_np_statevector(v[0], nq), _np_statevector(r, nq))) ** 2
+                             for r in v[1:]])
+            np_err = float(np.abs(got - want).max())
+            if np_err > 1e-5:
+                raise AssertionError(f"n_qubits={nq}: fidelity_statevector off numpy by {np_err}")
+            rows.append((nq, ms["statevector"], ms["analytic"], err, np_err, reorders))
+            if nq == 4:
+                with self._serve(sv) as port:
+                    served = _post(port, "/search_rerank", {"vectors": q[:4].tolist(), "k": 10,
+                                                            "candidates": 100})
+                if hits(served)[0] != i_sv[:4]:
+                    raise AssertionError("served statevector /search_rerank differs")
+        for nq, s_ms, a_ms, err, np_err, reorders in rows:
+            print(f"(f) fused search_rerank B=64 k=10 C=100 [{self.card}] n_qubits={nq}: "
+                  f"full statevector {s_ms:.3f} ms vs analytic {a_ms:.3f} ms (host clock, median "
+                  f"of 3); same top-10 (reorders between fidelities within 1e-5 of each other: "
+                  f"{reorders}), max |fidelity diff| {err:.2e}; fidelity_statevector vs numpy "
+                  f"complex128 max err {np_err:.2e}", flush=True)
+        print(f"(f) kernel launches of the statevector reranks: {launches}", flush=True)
+        self.amplitude_rerank(index)
+        return launches
+
+    def amplitude_rerank(self, index):
+        """POST /rerank with 100 documents under ``encoding="amplitude"``
+        against the amplitude fidelity computed in f64."""
+        from qrag_tpu_torch.config import QragConfig
+        from qrag_tpu_torch.engine import QragEngine
+        from qrag_tpu_torch.pipeline.embeddings import MockEmbedder
+
+        cfg = {"embedding": {"provider": "hash", "dim": index.d},
+               "quantum": {"encoding": "amplitude"}}
+        eng = QragEngine(config=QragConfig.from_dict(cfg), index=index, device=self.dev)
+        nq = eng.config.quantum.n_qubits
+        query = "find the sponsor segment"
+        contents = [f"segment {i}: " + ("sponsor read " if i % 4 else "the news ") * (1 + i % 7)
+                    for i in range(100)]
+        docs = [{"id": str(i), "content": c} for i, c in enumerate(contents)]
+        with self._serve(eng) as port:
+            t0 = time.perf_counter()
+            resp = _post(port, "/rerank", {"query": query, "documents": docs, "top_k": 100,
+                                           "reranker_type": "quantum"})
+            ms = 1e3 * (time.perf_counter() - t0)
+        e = np.asarray(MockEmbedder(dim=nq * 2)([query] + contents), np.float64)
+        amp = np.zeros((e.shape[0], 2 ** nq))
+        width = min(e.shape[1], 2 ** nq)
+        amp[:, :width] = e[:, :width]
+        amp /= np.linalg.norm(amp, axis=1, keepdims=True)
+        fid = (amp[1:] @ amp[0]) ** 2
+        got = {e_["document"]["id"]: e_["score"] for e_ in resp["documents"]}
+        err = max(abs(got[str(i)] - fid[i]) for i in range(100))
+        order = [e_["document"]["id"] for e_ in resp["documents"]]
+        if resp["reranker_used"] != "quantum" or len(got) != 100 or err > 1e-5:
+            raise AssertionError(f"amplitude /rerank: {resp['reranker_used']}, err {err}")
+        if [fid[int(i)] for i in order] != sorted(fid, reverse=True):
+            # an order that disagrees with f64 only inside f32 rounding
+            gaps = np.diff([fid[int(i)] for i in order])
+            if gaps.max() > 1e-6:
+                raise AssertionError("amplitude /rerank order differs from f64")
+        print(f"(f) POST /rerank 100 documents, encoding=amplitude n_qubits={nq} "
+              f"[{self.card}]: scores within {err:.2e} of the f64 amplitude fidelity, "
+              f"order equal; {ms:.2f} ms (one HTTP request)", flush=True)
+
 
 def _check_exact(idx, vals, oi, ov, g, atol):
     """The repo's exactness contract (tests/test_bounded_topk.py
@@ -2620,6 +3128,49 @@ def _recall(got, truth):
     ]))
 
 
+def _same_ranking(idx, score, ref_idx, ref_score, tol):
+    """Two top-k rankings (lists of index rows, score arrays) agree: the
+    scores rank for rank within ``tol``, and the identities equal except
+    where entries whose scores lie within ``tol`` of each other swap
+    places (or swap across the k-th place).  Returns those reorders."""
+    if float(np.abs(np.asarray(score) - np.asarray(ref_score)).max()) > tol:
+        raise AssertionError(f"scores differ by more than {tol}")
+    reorders = 0
+    for row, (got, want) in enumerate(zip(idx, ref_idx)):
+        ref = dict(zip(want, ref_score[row]))
+        for p, i in enumerate(got):
+            if i == want[p]:
+                continue
+            reorders += 1
+            # the same row at another place within tol, or a row past
+            # the k-th place whose score ties the boundary within tol
+            near = ref[i] if i in ref else ref_score[row][-1]
+            if abs(score[row][p] - near) > tol:
+                raise AssertionError(f"row {row} place {p}: {i} is no tie of {want[p]}")
+    return reorders
+
+
+def _np_statevector(vector, n_qubits):
+    """The reference encoding circuit in numpy complex128, written apart
+    from the port: per qubit rz(v_i pi/2) ry(v_i pi) |0> as 2x2 matrices,
+    their tensor product (qubit n-1 the most significant index bit),
+    then cx(i, i+1) as index permutations."""
+    v = np.asarray(vector, np.float64)
+    norm = np.linalg.norm(v)
+    if norm > 0:
+        v = v / norm
+    state = np.ones(1, complex)
+    for i in range(n_qubits - 1, -1, -1):
+        t = v[i] * np.pi if i < len(v) else 0.0
+        ry = np.array([[np.cos(t / 2), -np.sin(t / 2)], [np.sin(t / 2), np.cos(t / 2)]], complex)
+        rz = np.diag([np.exp(-0.5j * (t / 2)), np.exp(0.5j * (t / 2))])
+        state = np.kron(state, rz @ ry @ np.array([1.0, 0.0], complex))
+    idx = np.arange(2 ** n_qubits)
+    for c in range(n_qubits - 1):
+        state = state[idx ^ (((idx >> c) & 1) << (c + 1))]
+    return state
+
+
 # one f32 ulp of slack, as tests/test_int8_domain.py allows
 _ULP_RTOL = 4e-7
 
@@ -2701,6 +3252,7 @@ def main() -> int:
     launches = smoke.main_path()
     launches.update(smoke.models_path())
     smoke.train_path()
+    launches.update(smoke.accel_quantum_path())
     kernels = []
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]
@@ -2712,6 +3264,8 @@ def main() -> int:
             # 0: the float top-1 arm lies on no dispatched path
             "launches": launches.get(key, 0),
             "launches_ingest_path": launches.get(("ingest", key), 0),
+            "launches_accel_path": launches.get(("accel", key), 0),
+            "launches_quantum_path": launches.get(("quantum", key), 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2739,6 +3293,8 @@ def main() -> int:
                     "qrag_tpu/ops/pallas/gather_rows.py:131 (_gather_bs_kernel)",
         "launches": launches["gather_rows"],
         "launches_ingest_path": launches[("ingest", "gather_rows")],
+        "launches_accel_path": launches[("accel", "gather_rows")],
+        "launches_quantum_path": launches[("quantum", "gather_rows")],
         **{key: row[key] for key in gather_keys},
         "other_shapes": {
             f"M={m}": {key: smoke.kernel_rows[("gather_rows", m)][key] for key in gather_keys}
@@ -2755,6 +3311,8 @@ def main() -> int:
                 "replaces": "qrag_tpu/ops/pallas/scan_topk.py:74 (_scan_topk_kernel)",
                 # 0 expected: like the reference's, on no dispatched path
                 "launches": launches[("scan_topk", arm)],
+                "launches_accel_path": launches[("accel", ("scan_topk", arm))],
+                "launches_quantum_path": launches[("quantum", ("scan_topk", arm))],
                 **{key: row[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_composite_ms", "library_composite_device_ms", "gemm_floor_ms",

@@ -4,7 +4,9 @@
 One object owns the device-resident index, the embedder and the
 rerankers.  The fused path runs retrieval top-C -> gather of the
 candidates' cached rotation features -> analytic fidelity -> top-k on
-the device, with no host round trip between the stages.  The routed
+the device, with no host round trip between the stages; with
+``use_analytic_fidelity=False`` it scores the candidates' raw rows by
+the full complex statevector instead.  The routed
 path ("auto" and "classical") gathers the candidates' raw rows with the
 row-gather kernel (``ops.gather_rows``) and selects per query between
 the fidelity and the cosine expert.
@@ -12,13 +14,13 @@ the fidelity and the cosine expert.
 ``quantization="int8"`` builds the ``QuantizedFlatIndex`` (row or
 window scan, exact or gather-free scores); ``bounded_scan="int8"``
 runs the bounded scan, and the fused rerank's candidate generation,
-on int8 codes.
+on int8 codes.  With ``small_batch_accel`` set, small batches of
+``search_rerank`` take their candidates from the index's clustered
+accelerator (``ops.cluster_topk``).
 
 Not ported yet (raise NotImplementedError): the sharded index
-(ROADMAP.md, Queue 1 slice 6); the full-statevector fidelity and the
-amplitude encoding (``use_analytic_fidelity=False``, slice 7); the
-fused reranks over a quantized index (slice 5: the reference runs them
-on the unported approx scan).
+(ROADMAP.md, Queue 1 slice 6); the fused reranks over a quantized index
+(slice 5: the reference runs them on the unported approx scan).
 """
 
 from __future__ import annotations
@@ -61,11 +63,26 @@ def _fused_candidates(
     bounded_bufs=None,
     bounded_query_store: bool = False,
     bounded_kind: str = "bf16",
+    cluster_groups=None,
+    cluster_budget: int = 16,
+    cluster_probe: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Finalized (B, C) retrieval scores + indices for the fused rerank:
-    the provably-exact bounded scan when ``bounded_bufs`` (the index's
-    bounded buffers: the bf16 scan copy, or the int8 codes and margin
-    inputs per ``bounded_kind``) are given, else the exact sort."""
+    the cluster-pruned search when ``topk_mode="clustered"`` and
+    ``cluster_groups`` (the index's built structure) are given (exact;
+    ``cluster_probe`` selects its IVF arm; invalid slots carry
+    ``_PAD_IDX``), the provably-exact bounded scan when ``bounded_bufs``
+    (the index's bounded buffers: the bf16 scan copy, or the int8 codes
+    and margin inputs per ``bounded_kind``) are given, else the exact
+    sort."""
+    if topk_mode == "clustered" and cluster_groups is not None:
+        from qrag_tpu_torch.ops.cluster_topk import cluster_pruned_topk
+
+        vals, idx, _, _ = cluster_pruned_topk(
+            query_vecs, cluster_groups, candidates, metric=metric,
+            budget=cluster_budget, certify=not cluster_probe,
+        )
+        return _finalize(vals, idx, metric)
     if topk_mode == "bounded" and bounded_bufs is not None:
         from qrag_tpu_torch.ops.bounded_topk import (
             bounded_exact_topk,
@@ -99,6 +116,26 @@ def _fused_candidates(
     )
 
 
+# amplitudes (complex64) one step of the full-statevector rerank holds
+_STATEVECTOR_STEP = 1 << 25
+
+
+def _statevector_fidelity(
+    query_vecs: torch.Tensor, cand: torch.Tensor, n_qubits: int
+) -> torch.Tensor:
+    """(B, d) queries x (B, C, d) candidate rows -> (B, C) fidelities by
+    the full statevector, in query steps of at most
+    ``_STATEVECTOR_STEP`` candidate amplitudes."""
+    from qrag_tpu_torch.ops.statevector import fidelity_statevector
+
+    b, c = cand.shape[:2]
+    step = max(1, _STATEVECTOR_STEP // (c * 2 ** n_qubits))
+    return torch.cat([
+        fidelity_statevector(query_vecs[s : s + step, None, :], cand[s : s + step], n_qubits)
+        for s in range(0, b, step)
+    ])
+
+
 def fused_search_rerank(
     query_vecs: torch.Tensor,  # (B, d)
     corpus: torch.Tensor,  # (N, d)
@@ -107,14 +144,16 @@ def fused_search_rerank(
     k: int,
     candidates: int,
     n_qubits: int,
-    fid_feats: torch.Tensor,  # (N, n_qubits) cached rotation features
+    fid_feats: Optional[torch.Tensor] = None,  # (N, n_qubits) cached features
     metric: str = "l2",
     topk_mode: str = "exact",
-    bounded_bufs=None,
-    bounded_query_store: bool = False,
-    bounded_kind: str = "bf16",
+    analytic: bool = True,
+    **candidate_kw,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Retrieval top-C -> analytic quantum fidelity -> top-k.
+    """Retrieval top-C -> quantum fidelity -> top-k.  The analytic path
+    gathers the candidates' cached rotation features (``fid_feats``);
+    ``analytic=False`` scores their raw rows by the full statevector.
+    ``candidate_kw`` selects the candidate stage (``_fused_candidates``).
 
     Returns (fidelity (B, k) desc, corpus indices (B, k), retrieval
     scores of the selected rows (B, k))."""
@@ -125,14 +164,19 @@ def fused_search_rerank(
 
     retr_scores, idx = _fused_candidates(
         query_vecs, corpus, corpus_sqnorms, valid_rows, candidates, metric,
-        topk_mode, bounded_bufs, bounded_query_store, bounded_kind,
+        topk_mode, **candidate_kw,
     )  # (B, C)
-    q_feat = rotation_features(query_vecs.to(torch.float32), n_qubits)
-    fid = fidelity_from_features(q_feat, fid_feats[idx])  # (B, C)
-    # mask invalid candidate slots (C > ntotal)
+    # invalid slots (C > ntotal) are masked below; they gather row 0, as
+    # a pad slot's _PAD_IDX would lie past the cache
     invalid = (
         torch.isinf(retr_scores) if metric == "l2" else torch.isneginf(retr_scores)
     )
+    rows = torch.where(invalid, 0, idx)
+    if analytic:
+        q_feat = rotation_features(query_vecs.to(torch.float32), n_qubits)
+        fid = fidelity_from_features(q_feat, fid_feats[rows])  # (B, C)
+    else:
+        fid = _statevector_fidelity(query_vecs, corpus[rows], n_qubits)
     fid = torch.where(invalid, -torch.inf, fid)
     top_fid, sel = top_k(fid, k)
     return top_fid, idx.gather(1, sel), retr_scores.gather(1, sel)
@@ -149,13 +193,12 @@ def fused_search_rerank_routed(
     n_qubits: int,
     metric: str = "l2",
     topk_mode: str = "exact",
-    bounded_bufs=None,
-    bounded_query_store: bool = False,
-    bounded_kind: str = "bf16",
+    **candidate_kw,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-query expert-routed rerank: both experts score the gathered
     (B, C, d) candidate rows — the analytic fidelity on the raw rows and
-    the cosine — and ``route_quantum`` picks per row.
+    the cosine — and ``route_quantum`` picks per row.  ``candidate_kw``
+    selects the candidate stage (``_fused_candidates``).
 
     Returns (scores (B, k) desc, corpus indices (B, k), retrieval
     scores of the selected rows (B, k))."""
@@ -164,7 +207,7 @@ def fused_search_rerank_routed(
 
     retr_scores, idx = _fused_candidates(
         query_vecs, corpus, corpus_sqnorms, valid_rows, candidates, metric,
-        topk_mode, bounded_bufs, bounded_query_store, bounded_kind,
+        topk_mode, **candidate_kw,
     )  # (B, C)
     # invalid slots (C > ntotal) carry out-of-range indices: the kernel
     # clamps them, and the rows they fetch are masked below
@@ -198,6 +241,10 @@ def _index_cls_and_kwargs(config: QragConfig):
         bounded_scan=config.index.bounded_scan,
         bounded_query_dtype=config.index.bounded_query_dtype,
         small_batch_accel=config.index.small_batch_accel,
+        accel_max_batch=config.index.accel_max_batch,
+        cluster_group_rows=config.index.cluster_group_rows,
+        cluster_budget=config.index.cluster_budget or None,
+        accel_read_cap=config.index.accel_read_cap,
     )
     if config.index.quantization == "int8":
         kw["refine_factor"] = config.index.refine_factor
@@ -335,7 +382,9 @@ class QragEngine:
                     raise NotImplementedError(_QUANTIZED_FUSED)
                 snap = self.index.device_buffers()  # one atomic generation
                 if reranker_type == "quantum":
-                    fid, idx, retr = self._fused_quantum(q, k_eff, c_eff, snap)
+                    fid, idx, retr = self._fused_quantum(
+                        q, k_eff, c_eff, snap, batch=qv.shape[0]
+                    )
                 else:
                     # "classical": the routed graph with an all-cosine mask
                     route = [False] * qv.shape[0]
@@ -344,7 +393,9 @@ class QragEngine:
                             self.controller.select_reranker(t) == "quantum"
                             for t in query_texts
                         ]
-                    fused_mode, bounded_kw = self._fused_candidate_mode(c_eff, snap)
+                    fused_mode, bounded_kw = self._fused_candidate_mode(
+                        c_eff, snap, batch=qv.shape[0]
+                    )
                     fid, idx, retr = fused_search_rerank_routed(
                         q, torch.tensor(route, device=self.device),
                         snap.matrix, snap.sqnorms, snap.valid,
@@ -363,21 +414,21 @@ class QragEngine:
             "reranker_used": reranker_type,
         }
 
-    def _fused_quantum(self, q: torch.Tensor, k: int, candidates: int, snap):
+    def _fused_quantum(
+        self, q: torch.Tensor, k: int, candidates: int, snap, batch=None
+    ):
         """The fused quantum rerank of device queries ``q`` over one
-        snapshot: (fidelity, indices, retrieval scores) on the device."""
-        if not self.config.quantum.use_analytic_fidelity:
-            raise NotImplementedError(
-                "the full-statevector fidelity is not ported yet "
-                "(ROADMAP.md, Queue 1 slice 7)"
-            )
-        fused_mode, bounded_kw = self._fused_candidate_mode(candidates, snap)
+        snapshot: (fidelity, indices, retrieval scores) on the device.
+        ``batch`` (the request's query count) lets a small batch take
+        the clustered accelerator's candidates."""
+        fused_mode, bounded_kw = self._fused_candidate_mode(candidates, snap, batch=batch)
         n_qubits = self.config.quantum.n_qubits
+        analytic = bool(self.config.quantum.use_analytic_fidelity)
         return fused_search_rerank(
             q, snap.matrix, snap.sqnorms, snap.valid,
             k=k, candidates=candidates, n_qubits=n_qubits,
-            fid_feats=self.index.fidelity_features(n_qubits, snap),
-            metric=self.index.metric, topk_mode=fused_mode,
+            fid_feats=self.index.fidelity_features(n_qubits, snap) if analytic else None,
+            metric=self.index.metric, topk_mode=fused_mode, analytic=analytic,
             **bounded_kw,
         )
 
@@ -446,10 +497,24 @@ class QragEngine:
         self.metrics.incr("recall_samples", len(rows))
         return hits / len(rows)
 
-    def _fused_candidate_mode(self, candidates: int, snap):
+    def _fused_candidate_mode(self, candidates: int, snap, batch=None):
         """Effective candidate-generation mode of the fused path and the
-        kwargs that realize it: "bounded" runs for real when the index
-        shapes are eligible, otherwise the exact sort."""
+        kwargs that realize it.  With ``batch`` (the non-pipelined
+        ``search_rerank``) an eligible small batch takes the clustered
+        accelerator, built here against the CALLER's snapshot (a newer
+        generation's structure could name rows the older matrix holds
+        as capacity padding).  Otherwise "bounded" runs for real when
+        the index shapes are eligible, else the exact sort."""
+        if batch is not None and self.index._accel_eligible(batch, candidates):
+            from qrag_tpu_torch.ops.cluster_topk import _auto_budget
+
+            groups = self.index.build_clustered(snap=snap)
+            return "clustered", {
+                "cluster_groups": groups,
+                "cluster_budget": self.index.cluster_budget
+                or _auto_budget(candidates, groups.group_rows),
+                "cluster_probe": self.index.small_batch_accel == "clustered_probe",
+            }
         if self.index.topk_mode == "bounded" and self.index._bounded_eligible(
             candidates
         ):
@@ -508,11 +573,31 @@ class QragEngine:
         k = min(10, n)  # /search and /search_rerank serving default
         candidates = min(100, n)  # /search_rerank serving default
         fused = not isinstance(self.index, QuantizedFlatIndex)
+        # the clustered accelerator's k-means is seconds at 1M rows: build
+        # it here, not on the first live small batch (k=1 is the loosest
+        # gate, so a corpus eligible at any serving k builds)
+        if self.index.small_batch_accel != "none" and self.index._accel_eligible(1, 1):
+            self.index.build_clustered()
         for b in batch_sizes:
             q = np.zeros((b, self.index.d), dtype=np.float32)
             self.index.search(q, k=k)
             if fused:
                 self.search_rerank(q, k=min(k, candidates), candidates=candidates)
+        # the doc-list rerank's device ops: the batcher's pair function
+        # and the single-request scorer of the configured encoding
+        qr = self.controller.quantum_reranker
+        if qr is not None and qr.config.method == "state_fidelity":
+            from qrag_tpu_torch.ops.statevector import amplitude_fidelity, batched_fidelity
+            from qrag_tpu_torch.serving.batcher import _pair_fidelity_fn
+
+            dim = np.asarray(qr.embedder(["warmup"])).shape[1]
+            docs = torch.zeros((8, dim), dtype=torch.float32, device=qr.device)
+            analytic = bool(qr.config.use_analytic_fidelity)
+            _pair_fidelity_fn(qr.n_qubits, analytic, qr.config.encoding)(docs, docs).cpu()
+            if qr.config.encoding == "amplitude":
+                amplitude_fidelity(docs[0], docs, qr.n_qubits).cpu()
+            else:
+                batched_fidelity(docs[0], docs, n_qubits=qr.n_qubits, analytic=analytic).cpu()
         dt = time.time() - t0
         logger.info("engine warmup in %.2fs (batch buckets %s)", dt, tuple(batch_sizes))
         return dt
@@ -579,6 +664,11 @@ class QragEngine:
             "topk_mode": self.index.topk_mode,
             "verified_fallback_rows": self.index.fallback_rows,
             "bounded_escalations": self.index.bounded_escalations,
+            # the clustered accelerator's ladder: escalation = the 4x
+            # tier ran, fallback = the chunked full scan ran
+            "small_batch_accel": self.index.small_batch_accel,
+            "cluster_escalations": self.index.cluster_escalations,
+            "cluster_fallbacks": self.index.cluster_fallbacks,
             "effective_topk_modes": self._effective_topk_modes(),
         }
         if isinstance(self.index, QuantizedFlatIndex):

@@ -19,9 +19,16 @@ metadata pickle (``load_faiss``/``save_faiss``) and the native
 manifest + ``vectors.npy`` + ``metadata.json`` directory
 (``save_native``/``load_native``).
 
-Not ported yet (constructor raises): ``small_batch_accel`` (ROADMAP.md,
-Queue 1 slice 4), the approx/verified/refined modes (slice 5; the
-quantized index runs its own search), ``use_pallas``.
+With ``small_batch_accel="clustered"`` query batches of at most
+``accel_max_batch`` route through the cluster-pruned provably-exact
+search (``ops.cluster_topk``), which reads only the certified groups;
+``"clustered_probe"`` is its IVF nprobe arm (no certificates).  The
+structure is built lazily per snapshot generation (``build_clustered``)
+and its k-means assignment persists with ``save_native``.
+
+Not ported yet (constructor raises): the approx/verified/refined modes
+(ROADMAP.md, Queue 1 slice 5; the quantized index runs its own search),
+``use_pallas``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from qrag_tpu_torch.ops.topk import _finalize, flat_scan_topk
 MANIFEST_NAME = "manifest.json"
 VECTORS_NAME = "vectors.npy"
 METADATA_NAME = "metadata.json"
+CLUSTER_ASSIGN_NAME = "cluster_assign.npy"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,6 +131,10 @@ class DeviceFlatIndex:
         bounded_scan: str = "bf16",
         bounded_query_dtype: str = "float32",
         small_batch_accel: str = "none",
+        accel_max_batch: int = 16,
+        cluster_group_rows: int = 512,
+        cluster_budget: Optional[int] = None,
+        accel_read_cap: float = 0.5,
         device=None,
     ):
         if metric not in ("l2", "ip"):
@@ -137,15 +149,12 @@ class DeviceFlatIndex:
             )
         if store_dtype not in _DTYPES:
             raise ValueError(f"unknown store_dtype {store_dtype!r}")
+        if small_batch_accel not in ("none", "clustered", "clustered_probe"):
+            raise ValueError(f"unknown small_batch_accel {small_batch_accel!r}")
         if topk_mode not in self._topk_modes:
             raise NotImplementedError(
                 f"topk_mode {topk_mode!r} is not ported to qrag_tpu_torch "
                 "yet (ROADMAP.md, Queue 1 slice 5); use 'bounded' or 'exact'"
-            )
-        if small_batch_accel != "none":
-            raise NotImplementedError(
-                "small_batch_accel is not ported yet (ROADMAP.md, Queue 1 "
-                "slice 4)"
             )
         if use_pallas:
             raise NotImplementedError(
@@ -153,6 +162,17 @@ class DeviceFlatIndex:
                 "kernels run on every CUDA tensor (ROADMAP.md, Queue 2)"
             )
         self.device = resolve_device(device)
+        # small-batch accelerator: batches of <= accel_max_batch read only
+        # the certified groups (exact; "clustered_probe" is the IVF arm)
+        self.small_batch_accel = small_batch_accel
+        self.accel_max_batch = int(accel_max_batch)
+        self.cluster_group_rows = int(cluster_group_rows)
+        self.cluster_budget = cluster_budget
+        # routing guard: skip the accelerator when its expected read
+        # (batch * S * group_rows rows) exceeds this fraction of the
+        # corpus; 0 disables the guard
+        self.accel_read_cap = float(accel_read_cap)
+        self._cluster_assign: Optional[np.ndarray] = None
         self.bounded_scan = bounded_scan
         # "store": round queries to the store dtype before the bounded
         # scan — exact w.r.t. the ROUNDED query
@@ -165,6 +185,8 @@ class DeviceFlatIndex:
         self.store_dtype = _DTYPES[store_dtype]
         self.fallback_rows = 0  # bounded-mode exact full sorts
         self.bounded_escalations = 0  # bounded-mode 4x-budget re-certs
+        self.cluster_fallbacks = 0  # accel: chunked full scan ran
+        self.cluster_escalations = 0  # accel: 4x-budget tier ran
         self._stats_lock = threading.Lock()
         self._host_vectors = np.zeros((0, d), dtype=np.float32)
         self.metadata: List[str] = []
@@ -411,12 +433,91 @@ class DeviceFlatIndex:
             metric=self.metric, valid_rows=snap.valid,
         )
 
+    def _accel_eligible(self, batch: int, k: int) -> bool:
+        """Route this batch through the small-batch clustered
+        accelerator?  Small corpora are already cheap exactly, and the
+        structure needs several groups per top-k row to prune."""
+        if (
+            self.small_batch_accel not in ("clustered", "clustered_probe")
+            or batch > self.accel_max_batch
+        ):
+            return False
+        n = self.ntotal
+        L = self.cluster_group_rows
+        if not (n >= max(4096, 4 * L) and n // L >= max(2 * k, 8)):
+            return False
+        if not self.accel_read_cap:
+            return True
+        from qrag_tpu_torch.ops.cluster_topk import _auto_budget
+
+        # past accel_read_cap of the corpus the full scan (each row
+        # read once) is strictly better than ~batch * S * L group rows
+        s_budget = self.cluster_budget or _auto_budget(k, L)
+        return batch * s_budget * L <= n * self.accel_read_cap
+
+    def build_clustered(self, snap: Optional[DeviceBuffers] = None):
+        """Build (or fetch the cached) clustered structure of a
+        snapshot (``ops.cluster_topk``).  Search routing builds it
+        lazily; ``QragEngine.warmup`` builds it eagerly.  A persisted
+        assignment (``load_native``) skips the k-means; it is dropped
+        once rows are appended."""
+        from qrag_tpu_torch.ops.cluster_topk import build_clustered_groups
+
+        snap = self.device_buffers() if snap is None else snap
+        groups = snap.extras.get("clustered")
+        if groups is None:
+            # size off the SNAPSHOT's rows: with an explicit (older)
+            # snapshot a concurrent append must not leak capacity padding
+            n = snap.ntotal
+            assign = self._cluster_assign
+            if assign is not None and assign.shape[0] != n:
+                assign = None  # appended since the assignment was made
+            # the valid rows only, scored with the snapshot's master f32
+            # norms: the same refine function as the other l2 paths
+            groups = build_clustered_groups(
+                snap.matrix[:n], group_rows=self.cluster_group_rows,
+                assign=assign, sqnorms=snap.sqnorms[:n],
+            )
+            snap.extras["clustered"] = groups
+            if assign is None:
+                # a persistable assignment: labelling each row by its
+                # GROUP reproduces the exact layout on rebuild
+                oid = groups.orig_idx.cpu().numpy()
+                vld = groups.valid_p.cpu().numpy()
+                L = groups.group_rows
+                gid = np.repeat(np.arange(oid.shape[0] // L, dtype=np.int32), L)
+                assign = np.empty((n,), np.int32)
+                assign[oid[vld]] = gid[vld]
+            self._cluster_assign = assign
+        return groups
+
+    def _accel_search(self, queries: torch.Tensor, k: int):
+        """Raw cluster-pruned search (goodness, ORIGINAL idx, fell_back,
+        escalated); callers finalize."""
+        from qrag_tpu_torch.ops.cluster_topk import cluster_pruned_topk
+
+        return cluster_pruned_topk(
+            queries.to(torch.float32), self.build_clustered(), k,
+            metric=self.metric, budget=self.cluster_budget,
+            # "clustered_probe": IVF nprobe semantics, the ONLY
+            # approximate arm ("clustered" stays provably exact)
+            certify=self.small_batch_accel != "clustered_probe",
+        )
+
     def search_device(
         self, queries: torch.Tensor, k: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-level search: (B, d) queries -> finalized (scores,
-        indices) tensors, padded rows masked out."""
+        indices) tensors, padded rows masked out.  The accelerator
+        routes here only once its structure is built (``search`` and
+        ``build_clustered`` build it)."""
         queries = queries.to(self.device)
+        if (
+            self._accel_eligible(queries.shape[0], k)
+            and self.device_buffers().extras.get("clustered") is not None
+        ):
+            vals, idx, _, _ = self._accel_search(queries, k)
+            return _finalize(vals, idx, self.metric)
         if self._bounded_eligible(k):
             vals, idx, _, _, _ = self._bounded_search(
                 queries.to(torch.float32), k
@@ -446,7 +547,13 @@ class DeviceFlatIndex:
                 metadata=[],
             )
         q = torch.from_numpy(queries).to(self.device)
-        if self._bounded_eligible(k_eff):
+        if self._accel_eligible(q.shape[0], k_eff):
+            vals, idx, fell_back, escalated = self._accel_search(q, k_eff)
+            with self._stats_lock:
+                self.cluster_fallbacks += int(fell_back)
+                self.cluster_escalations += int(escalated)
+            scores, indices = _finalize(vals, idx, self.metric)
+        elif self._bounded_eligible(k_eff):
             vals, idx, fell_back, _, escalated = self._bounded_search(q, k_eff)
             # whole-batch events: the full sort ran / the 4x tier ran
             with self._stats_lock:
@@ -492,6 +599,15 @@ class DeviceFlatIndex:
             "normalized": self.normalize,
             "row_pad_multiple": self.row_pad_multiple,
         }
+        # the clustered accelerator's assignment, when one exists for
+        # the current rows: load_native then skips the k-means
+        assign = self._cluster_assign
+        if assign is not None and assign.shape[0] == self.ntotal:
+            np.save(
+                os.path.join(directory, CLUSTER_ASSIGN_NAME),
+                np.asarray(assign, np.int32),
+            )
+            manifest["cluster_group_rows"] = self.cluster_group_rows
         with open(os.path.join(directory, MANIFEST_NAME), "w") as f:
             json.dump(manifest, f, indent=2)
 
@@ -512,4 +628,12 @@ class DeviceFlatIndex:
             vectors, metric=manifest["metric"], metadata=metadata, **kwargs
         )
         idx.normalize = bool(manifest.get("normalized", False))
+        assign_path = os.path.join(directory, CLUSTER_ASSIGN_NAME)
+        if (
+            os.path.exists(assign_path)
+            and manifest.get("cluster_group_rows") == idx.cluster_group_rows
+        ):
+            assign = np.load(assign_path)
+            if assign.shape[0] == idx.ntotal:
+                idx._cluster_assign = assign.astype(np.int32)
         return idx

@@ -1,16 +1,14 @@
 """Quantum fidelity reranker (PyTorch port of
 ``qrag_tpu.reranker.quantum``).
 
-All candidates are scored in one batched device op: the analytic
-product-form fidelity of the rotation-encoding circuit
-(``ops.statevector.batched_fidelity``).  The graceful-degradation
-contract is kept: a scoring failure falls back to the classical
-reranker, which in turn degrades to neutral scores; a method other than
-"state_fidelity" returns the reference's flat 0.5 scores.
-
-The full-statevector fidelity (``use_analytic_fidelity=False``) and the
-amplitude encoding are not ported yet (ROADMAP.md, Queue 1 slice 7):
-they raise before the fallback, which would otherwise hide the gap.
+All candidates are scored in one batched device op
+(``ops.statevector``): the rotation-encoding circuit's fidelity by the
+analytic product form (default) or the full 2^n statevector
+(``use_analytic_fidelity=False``), or with ``encoding="amplitude"`` the
+amplitude-encoded fidelity.  The graceful-degradation contract is kept:
+a scoring failure falls back to the classical reranker, which in turn
+degrades to neutral scores; a method other than "state_fidelity"
+returns the reference's flat 0.5 scores.
 """
 
 from __future__ import annotations
@@ -25,7 +23,7 @@ import torch
 from qrag_tpu_torch.config import QuantumConfig
 from qrag_tpu_torch.device import resolve_device
 from qrag_tpu_torch.documents import Document, validate_documents
-from qrag_tpu_torch.ops.statevector import SLICE7, batched_fidelity
+from qrag_tpu_torch.ops.statevector import amplitude_fidelity, batched_fidelity
 from qrag_tpu_torch.pipeline.embeddings import Embedder, MockEmbedder
 from qrag_tpu_torch.reranker.classical import ClassicalReranker
 
@@ -33,7 +31,7 @@ logger = logging.getLogger(__name__)
 
 
 class QuantumReranker:
-    """Analytic-fidelity reranker, batched on the device."""
+    """Statevector-fidelity reranker, batched on the device."""
 
     def __init__(
         self,
@@ -51,23 +49,20 @@ class QuantumReranker:
             device=self.device
         )
 
-    def _require_ported(self) -> None:
-        if self.config.encoding == "amplitude":
-            raise NotImplementedError(f"the amplitude encoding is not ported yet {SLICE7}")
-        if not self.config.use_analytic_fidelity:
-            raise NotImplementedError(
-                f"the full-statevector fidelity is not ported yet {SLICE7}"
-            )
-
     def score_documents(self, query: str, documents: List[Document]) -> np.ndarray:
         """Fidelity scores |<psi_q|psi_d>|^2 for all documents, one
         batched device call."""
-        self._require_ported()
         embeds = np.asarray(
             self.embedder([query] + [doc.content for doc in documents]), dtype=np.float32
         )
         e = torch.from_numpy(np.ascontiguousarray(embeds)).to(self.device)
-        scores = batched_fidelity(e[0], e[1:], n_qubits=self.n_qubits)
+        if self.config.encoding == "amplitude":
+            scores = amplitude_fidelity(e[0], e[1:], self.n_qubits)
+        else:
+            scores = batched_fidelity(
+                e[0], e[1:], n_qubits=self.n_qubits,
+                analytic=self.config.use_analytic_fidelity,
+            )
         return scores.cpu().numpy().astype(np.float32)
 
     def rerank(
@@ -84,7 +79,6 @@ class QuantumReranker:
             # the reference's non-state_fidelity branch: flat 0.5 scores
             scored = [(doc, 0.5) for doc in documents]
         else:
-            self._require_ported()
             try:
                 t0 = time.time()
                 scores = self.score_documents(query, documents)

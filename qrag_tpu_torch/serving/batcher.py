@@ -37,7 +37,7 @@ import torch
 
 from qrag_tpu_torch.documents import validate_documents
 from qrag_tpu_torch.index.flat_index import SearchResult
-from qrag_tpu_torch.ops.statevector import batched_fidelity
+from qrag_tpu_torch.ops.statevector import amplitude_encode, batched_fidelity
 
 
 @dataclass
@@ -50,14 +50,23 @@ class _Pending:
     priority: int = 0  # higher serves first when the queue is backlogged
 
 
-def pair_fidelity(
-    pair_q: np.ndarray, pair_d: np.ndarray, n_qubits: int, device
-) -> np.ndarray:
-    """(P, dim) query rows x (P, dim) doc rows -> (P,) fidelities on
-    ``device``: the one device op behind coalesced /rerank requests."""
-    q = torch.from_numpy(np.ascontiguousarray(pair_q)).to(device)
-    d = torch.from_numpy(np.ascontiguousarray(pair_d)).to(device)
-    return batched_fidelity(q, d, n_qubits=n_qubits).cpu().numpy().astype(np.float32)
+def _pair_fidelity_fn(n_qubits: int, analytic: bool, encoding: str):
+    """The PAIR-flattened fidelity of one quantum config: ``(P, dim)``
+    query rows x ``(P, dim)`` doc rows -> ``(P,)`` tensor, one score per
+    pair — the device op behind coalesced /rerank requests."""
+    if encoding == "amplitude":
+        def pair(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+            inner = torch.sum(
+                torch.real(amplitude_encode(q, n_qubits))
+                * torch.real(amplitude_encode(d, n_qubits)),
+                dim=-1,
+            )
+            return inner * inner
+    else:
+        def pair(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+            return batched_fidelity(q, d, n_qubits=n_qubits, analytic=analytic)
+
+    return pair
 
 
 class SearchBatcher:
@@ -317,7 +326,6 @@ class SearchBatcher:
     def _serve_doc_rerank_chunk(self, coalesced: List[_Pending]) -> None:
         qr = self.engine.controller.quantum_reranker
         try:
-            qr._require_ported()  # the pair op is the rotation encoding's
             # ONE embedder call + ONE device fidelity call for the group:
             # every (query, doc) pair on one pair axis
             texts: List[str] = []
@@ -336,9 +344,11 @@ class SearchBatcher:
                 q_rows.extend([off] * nd)
                 d_rows.extend(range(off + 1, off + 1 + nd))
                 off += 1 + nd
-            scores = pair_fidelity(
-                embeds[q_rows], embeds[d_rows], qr.n_qubits, qr.device
+            pair = _pair_fidelity_fn(
+                qr.n_qubits, bool(qr.config.use_analytic_fidelity), qr.config.encoding
             )
+            e = torch.from_numpy(np.ascontiguousarray(embeds)).to(qr.device)
+            scores = pair(e[q_rows], e[d_rows]).cpu().numpy()
             self.batches += 1
             self.batched_queries += len(coalesced)
             for it, sl in zip(coalesced, spans):

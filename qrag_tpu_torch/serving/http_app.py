@@ -25,7 +25,8 @@ coalesces concurrent /search, /search_rerank (except "auto") and
 /rerank requests into device batches (``serving/batcher.py``).
 ``--sharded`` and ``--elastic`` are not ported yet (ROADMAP.md, Queue 1
 slice 6).  ``--bounded-scan int8`` and ``--lean-scan`` select the int8
-retrieval modes.  Requests run on the handler threads, each launching
+retrieval modes; ``--small-batch-accel`` the clustered accelerator of
+small batches.  Requests run on the handler threads, each launching
 the kernels on its own current CUDA stream; with ``--batching`` the
 batcher's worker thread runs the device calls.
 """
@@ -377,6 +378,17 @@ def _parser() -> argparse.ArgumentParser:
         "float32 = exact w.r.t. the query as given",
     )
     parser.add_argument(
+        "--small-batch-accel",
+        default=None,
+        choices=["none", "clustered", "clustered_probe"],
+        help="small-batch latency accelerator: 'clustered' routes query "
+        "batches <= IndexConfig.accel_max_batch through the cluster-pruned "
+        "PROVABLY-EXACT search (ops/cluster_topk.py), which reads only the "
+        "certified groups; 'clustered_probe' = FAISS-IVF nprobe semantics "
+        "(no certificates, recall via QRAG_INDEX_CLUSTER_BUDGET), the "
+        "explicit approximate opt-in",
+    )
+    parser.add_argument(
         "--lean-scan",
         action="store_true",
         help="memory-lean serving: int8 windowed packed scan with "
@@ -420,6 +432,7 @@ def _configure(parser: argparse.ArgumentParser, args) -> QragConfig:
         "topk_mode": args.topk_mode,
         "bounded_scan": args.bounded_scan,
         "bounded_query_dtype": args.bounded_query_dtype,
+        "small_batch_accel": args.small_batch_accel,
     }
     if args.lean_scan:
         index_over.update(quantization="int8", quant_scan="window", exact_scores=False)

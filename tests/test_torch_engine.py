@@ -110,15 +110,19 @@ def test_unported_paths_raise(engines):
          "classical": {"method": "cross-encoder"}}), device="cpu")
     assert trained.embedder(["text"]).shape == (1, 8)
     assert trained.controller.classical_reranker._active_method == "cross-encoder"
-    te_sv = TEngine(
-        config=QragConfig.from_dict({**CFG, "quantum": {"use_analytic_fidelity": False}}),
-        index=te.index, device="cpu",
-    )
-    for call in (te_sv.search_rerank, te_sv.search_rerank_pipelined):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            call(_queries(5, 1))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        te_sv.rerank("find the ad", [Document("a", "text")], reranker_type="quantum")
+    # the full-statevector fidelity is ported: the fused rerank (direct
+    # and pipelined) and the doc-list rerank equal the JAX engine's
+    sv_cfg = {**CFG, "quantum": {"use_analytic_fidelity": False}}
+    te_sv = TEngine(config=QragConfig.from_dict(sv_cfg), index=te.index, device="cpu")
+    je_sv = JEngine(config=QragConfig.from_dict(sv_cfg), index=engines[0].index)
+    q = _queries(5, 2)
+    ot, oj = te_sv.search_rerank(q), je_sv.search_rerank(q)
+    assert ot["reranker_used"] == oj["reranker_used"] == "quantum"
+    assert _hits(ot)[0] == _hits(oj)[0]
+    np.testing.assert_allclose(_hits(ot)[1], _hits(oj)[1], atol=1e-6)
+    assert _hits(te_sv.search_rerank_pipelined(q))[0] == _hits(ot)[0]
+    out = te_sv.rerank("find the ad", [Document("a", "text")], reranker_type="quantum")
+    assert out["reranker_used"] == "quantum"
     quant = TEngine(config=QragConfig.from_dict(
         {"index": {"quantization": "int8"}, "embedding": {"provider": "hash", "dim": D}}
     ), device="cpu")
@@ -229,7 +233,8 @@ def test_port_imports_no_jax():
         "       'serving.mcp_server', 'serving.mcp_client', 'serving.llm_orchestrator',\n"
         "       'serving.devreload', 'parallel', 'parallel.train', 'models.checkpoint',\n"
         "       'models.train_cli', 'models.recall_eval', 'models.rerank_eval',\n"
-        "       'models.distill'}\n"
+        "       'models.distill', 'ops.cluster_topk', 'ops.circuit',\n"
+        "       'index.native_store', 'utils.profiling'}\n"
         "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
         "banned = ('jax', 'qrag_tpu', 'pydantic', 'optax', 'orbax', 'flax')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"

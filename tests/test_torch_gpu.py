@@ -472,3 +472,90 @@ def test_gpu_train_steps_hold_bf16_bounds(cuda):
         lambda m, dtype: be.info_nce_loss(m, *texts, dtype),
     )
     assert dev <= be.BF16_STEP_LOSS_RTOL and cos >= be.BF16_GRAD_COSINE_FLOOR, (dev, cos)
+
+
+def _clustered_rows(seed, n, d, n_centers=16, spread=0.05):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_centers, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, n_centers, n)] + spread * rng.standard_normal((n, d)).astype(np.float32)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("uniform", [False, True])
+def test_gpu_cluster_pruned_topk_matches_cpu(cuda, metric, uniform):
+    """The clustered accelerator on the card: the same structure (one
+    assignment) and the same identity and flags as on the CPU, exact
+    against the f32 oracle; uniform rows take the ladder."""
+    from qrag_tpu_torch.ops import cluster_topk as ct
+    from qrag_tpu_torch.ops.topk import _goodness, top_k
+
+    x = _clustered_rows(1, 8192, 64)
+    if uniform:
+        x = np.random.default_rng(2).standard_normal((8192, 64)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = _clustered_rows(3, 8, 64)
+    assign = ct.cluster_assignments(x, group_rows=64, kmeans_iters=3, device="cpu")
+    g_cpu = ct.build_clustered_groups(x, group_rows=64, assign=assign, device="cpu")
+    g_gpu = ct.build_clustered_groups(torch.from_numpy(x).to(cuda), group_rows=64, assign=assign)
+    assert torch.equal(g_gpu.orig_idx.cpu(), g_cpu.orig_idx)
+    vc, ic, fc, ec = ct.cluster_pruned_topk(q, g_cpu, 10, metric=metric)
+    vg, ig, fg, eg = ct.cluster_pruned_topk(torch.from_numpy(q).to(cuda), g_gpu, 10, metric=metric)
+    assert ig.device.type == "cuda" and (fg, eg) == (fc, ec)
+    ov, oi = top_k(_goodness(torch.from_numpy(q), torch.from_numpy(x), metric, None, None), 10)
+    assert torch.equal(ig.cpu(), oi) and torch.equal(ic, oi)
+    torch.testing.assert_close(vg.cpu(), ov, rtol=1e-5, atol=1e-5)
+    if uniform:
+        assert eg
+
+
+@pytest.mark.gpu
+def test_gpu_index_accel_routes_and_kmeans(cuda):
+    """The index's accelerator on the card builds its own k-means there
+    and equals the bounded search."""
+    from qrag_tpu_torch.index.flat_index import DeviceFlatIndex
+
+    x = _clustered_rows(4, 16384, 64)
+    accel = DeviceFlatIndex.from_numpy(x, small_batch_accel="clustered", cluster_group_rows=128,
+                                       accel_read_cap=0)
+    plain = DeviceFlatIndex.from_numpy(x)
+    q = _clustered_rows(5, 4, 64)
+    assert accel._accel_eligible(4, 10)
+    np.testing.assert_array_equal(accel.search(q, 10).indices, plain.search(q, 10).indices)
+    assert accel.device_buffers().extras["clustered"].corpus_p.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_qubits", [4, 10])
+def test_gpu_statevector_matches_cpu(cuda, n_qubits):
+    """complex64 on the card: the statevector fidelity, the amplitude
+    fidelity and a circuit equal their CPU evaluation within 1e-6."""
+    from qrag_tpu_torch.ops import circuit, statevector as sv
+
+    rng = np.random.default_rng(n_qubits)
+    q = torch.from_numpy(rng.standard_normal(2 * n_qubits).astype(np.float32))
+    d = torch.from_numpy(rng.standard_normal((32, 2 * n_qubits)).astype(np.float32))
+    for fn in (sv.fidelity_statevector, sv.amplitude_fidelity, sv.fidelity_analytic):
+        got = fn(q.to(cuda), d.to(cuda), n_qubits)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), fn(q, d, n_qubits), rtol=0, atol=1e-6)
+    c_gpu = circuit.Circuit(n_qubits).encode_rotations(q.numpy()).cx_ladder().h(0)
+    c_cpu = circuit.Circuit(n_qubits, device="cpu").encode_rotations(q.numpy()).cx_ladder().h(0)
+    torch.testing.assert_close(c_gpu.simulate().cpu(), c_cpu.simulate(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_gpu_native_store_to_device_index(cuda, tmp_path):
+    from qrag_tpu_torch.index import native_store as ns
+
+    x = _clustered_rows(6, 4096, 32)
+    with ns.NativeVectorStore(str(tmp_path / "s.qidx"), d=32) as s:
+        s.append(x)
+        _, want = s.scan_topk(x[:4], 5)
+        _, host, _ = s.cluster_topk(x[:4], 5)
+        idx = s.to_device_index()
+    assert idx.device.type == "cuda"
+    np.testing.assert_array_equal(idx.search(x[:4], 5).indices, want)
+    np.testing.assert_array_equal(host, want)

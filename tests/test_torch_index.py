@@ -149,8 +149,13 @@ def test_load_bundled_reference_index(bundled_index_path):
 
 
 def test_unported_options_raise_and_device_default(monkeypatch):
+    # the small-batch accelerator is ported (tests/test_torch_cluster_topk.py):
+    # it constructs, and an unknown arm is refused
+    for arm in ("clustered", "clustered_probe"):
+        assert TIndex(d=8, device="cpu", small_batch_accel=arm).small_batch_accel == arm
+    with pytest.raises(ValueError):
+        TIndex(d=8, device="cpu", small_batch_accel="ivf")
     for kw in (
-        {"small_batch_accel": "clustered"},
         {"topk_mode": "approx"},
         {"topk_mode": "verified"},
         {"topk_mode": "refined"},

@@ -155,8 +155,11 @@ def test_unported_scorers_raise():
     )
     assert ctl.classical_reranker._active_method == "cross-encoder"
     assert ctl.quantum_reranker.classical_fallback is ctl.classical_reranker
-    for cfg in (tconfig.QuantumConfig(encoding="amplitude"),
-                tconfig.QuantumConfig(use_analytic_fidelity=False)):
-        with pytest.raises(NotImplementedError, match="slice 7"):  # no silent fallback
-            QuantumReranker(cfg, device="cpu").rerank("query", _docs(TDoc))
+    # the amplitude encoding and the full statevector are ported: they
+    # score (no fallback to classical) as the reference does
+    for kw in ({"encoding": "amplitude"}, {"use_analytic_fidelity": False}):
+        got = QuantumReranker(tconfig.QuantumConfig(**kw), device="cpu").rerank("query", _docs(TDoc))
+        want = JQuantum(jconfig.QuantumConfig(**kw)).rerank("query", _docs(JDoc))
+        assert [d.id for d, _ in got] == [d.id for d, _ in want]
+        np.testing.assert_allclose([s for _, s in got], [s for _, s in want], atol=1e-6)
     assert jconfig.ClassicalConfig().method == tconfig.ClassicalConfig().method == "cosine"
