@@ -62,7 +62,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    (where they cut), index.search B=1024 with a ``torch.profiler``
    breakdown, certificate census; the gather and
    scan_topk kernels beside their twins, their bounds and the library
-   calls (``torch.index_select``; matmul + ``torch.topk``); the routed
+   calls (``torch.index_select``; matmul + ``torch.topk``, and for the
+   bf16 rows a bf16 product, whose output is bf16); the routed
    /search_rerank p50 at B=1.  A kernel is timed three ways: ``ms``,
    back-to-back calls of its wrapper between two CUDA events (host and
    device together); ``device_ms``, the same calls captured in a CUDA
@@ -134,11 +135,34 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    kernels line gives each kernel's launches on the accelerator's and
    the statevector's runs.
 
+10. the selection modes, the quantized fused rerank and sharded
+   retrieval (``modes_sharded_path``) over phase 5's 1,000,000 unit
+   rows: (a) ``index.search`` in "approx", "verified", "refined" (and
+   "bounded" beside them) at B=1024 k=10 and B=1 k=100 against the f32
+   oracle — verified under the exactness contract, the others by
+   recall@k >= 0.99 and the returned values within 1e-4 of the oracle's
+   — with ``fallback_rows``, ms and the scan_topk kernel's launches a
+   call (one: f32, or bf16 for refined); (d) ``/search_rerank`` B=1
+   C=100 (quantum, classical, auto) on a quantized index with a bf16
+   store, equal bit for bit to an unquantized bf16-store engine's in
+   "approx"; (b) a 1 x 4 mesh of slots on this card, bounded: identity
+   and tie order against the oracle at both cells, allgather equal to
+   ring bit for bit, the summed counters, the packed window scan on
+   every shard, the sharded ``search_rerank`` (three rerankers) equal to
+   the unsharded engine's within 1e-5, ``/search`` and
+   ``/search_rerank`` through ``create_server`` on an engine configured
+   by ``--sharded``, the per-shard accelerator at B=1; (c) an elastic
+   index on four slots that evicts exactly the slot with an injected
+   persistent failure and gives the same B=64 results over three.  The
+   kernels line gives K7's launches on the modes path
+   (``launches_modes_path``) and every kernel's on the sharded path
+   (``launches_sharded_path``).
+
 The last line is the JSON result; the line before it lists the kernels,
 the line before that the card.  ``python3 chip_smoke.py --only
 gather_vs_twin,scan_topk_vs_twin`` (or ``--only accel_quantum_path``
-for phase 9) runs the build and the named phases alone and prints no
-result.
+for phase 9, ``--only modes_sharded_path`` for phase 10) runs the build
+and the named phases alone and prints no result.
 """
 
 from __future__ import annotations
@@ -146,6 +170,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1649,6 +1674,14 @@ class Smoke:
             comp_device_ms = self._graph_ms(composite, 2, 2)
             # the product alone, as the library computes it, per compute type
             qb, xb = q.bfloat16(), x.bfloat16()
+
+            def composite_bf16():
+                # the bf16 product comes out in bf16 (f32 accumulation
+                # inside, rounded on output); the l2 terms promote to f32
+                g = 2.0 * (qb @ xb.T) - qsq[:, None] - sq[None, :]
+                return torch.topk(torch.where(valid[None, :], g, -torch.inf), k)
+
+            comp_bf16_ms = self._events_ms(composite_bf16, 5)
             gemm_ms = {torch.float32: self._events_ms(lambda: q @ x.T, 5),
                        torch.bfloat16: self._events_ms(lambda: qb @ xb.T, 5)}
             del xb
@@ -1683,6 +1716,8 @@ class Smoke:
                     "library_ms": None,
                     "library_composite_ms": comp_ms,
                     "library_composite_device_ms": comp_device_ms,
+                    # the bf16 rows' own composite (None for the f32 rows)
+                    "library_composite_bf16_ms": comp_bf16_ms if bf16 else None,
                     "gemm_floor_ms": gemm_ms[cd],
                     "device_ms": self._graph_ms(kernel, 3 if b > 1 else 10),
                     # few calls: the launch queue must not fill, or the
@@ -3032,6 +3067,439 @@ class Smoke:
               f"[{self.card}]: scores within {err:.2e} of the f64 amplitude fidelity, "
               f"order equal; {ms:.2f} ms (one HTTP request)", flush=True)
 
+    # ------------------------------------------------------------- phase 10
+
+    def modes_sharded_path(self, n_rows=1_000_000):
+        """Phase 10 over phase 5's 1,000,000 unit rows: (a) the approx /
+        verified / refined modes, (d) the fused rerank over a quantized
+        index (both the modes path: K7), (b) the sharded index on a 1 x 4
+        mesh of slots on this card and (c) its elastic wrapper (the
+        sharded path: K1 on every shard).  Returns the kernel launches of
+        the two paths' runs."""
+        t0 = time.perf_counter()
+        self._free()
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((n_rows, 768), dtype=np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        self._aside = {}
+        self._all_launches(reset=True)
+        index, bounded_ms = self.modes_path(x)
+        self.quantized_fused(x)
+        launches = {("modes", key): v - self._aside.get(key, 0)
+                    for key, v in self._all_launches().items()}
+        aside = {("modes", key): v for key, v in self._aside.items() if v}
+        self._aside = {}
+        self._all_launches(reset=True)
+        self.sharded_path(x, index, bounded_ms)
+        del index
+        self._free()
+        self.elastic_path(x)
+        launches.update({("sharded", key): v - self._aside.get(key, 0)
+                         for key, v in self._all_launches().items()})
+        aside.update({("sharded", key): v for key, v in self._aside.items() if v})
+        print(f"phase 10 (selection modes, quantized fused rerank, sharded, elastic): "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}; launches of the "
+              f"comparison engines, booked aside {aside}", flush=True)
+        return launches
+
+    def _aside_call(self, fn):
+        """``fn()``, a run of the engine a path is held against (the
+        unsharded or unquantized one) inside the path's counting window:
+        its kernel launches are booked aside, so that the path's counts
+        hold the path's own calls only."""
+        before = self._all_launches()
+        out = fn()
+        for key, n in self._all_launches().items():
+            self._aside[key] = self._aside.get(key, 0) + n - before[key]
+        return out
+
+    def _mode_oracle(self, snap, unit):
+        """(B, k, queries, oracle (qt, ov, oi), full goodness) for the two
+        cells of phase 10: B=1024 k=10 and B=1 k=100."""
+        from qrag_tpu_torch.ops.topk import _goodness
+
+        cells = []
+        for b, k in ((1024, 10), (1, 100)):
+            q = unit(b)
+            qt, ov, oi = self._oracle(snap, q, k)
+            g = _goodness(qt, snap.matrix, "l2", snap.sqnorms, snap.valid)
+            cells.append((b, k, q, (qt, ov, oi), g))
+        return cells
+
+    def _search_check(self, label, search, snap, cell, exact, recall_floor=0.99):
+        """One search against the oracle: exact modes under the exactness
+        contract, the others by recall@k (at least ``recall_floor``) and
+        the error of the returned values against the oracle's value of
+        the same rows.  Returns (recall, max value error, tie reorders)."""
+        torch = self.torch
+        b, k, q, (qt, ov, oi), g = cell
+        res = search(q, k)
+        idx = torch.from_numpy(res.indices).long().to(self.dev)
+        dist = torch.from_numpy(res.scores).to(self.dev)
+        err = float((dist + g.gather(1, idx)).abs().max())
+        recall = _recall(res.indices, oi.cpu().numpy())
+        ties = 0
+        if exact:
+            ties = _check_exact(idx, -dist, oi, ov, g, atol=1e-4)
+        elif recall < recall_floor or err > 1e-4:
+            raise AssertionError(f"{label} B={b} k={k}: recall@{k} {recall}, value error {err}")
+        return res, recall, err, ties
+
+    def _profile_calls(self, fn, calls, label):
+        """A ``torch.profiler`` trace of ``calls`` calls of ``fn``: wall,
+        device busy and idle share per call, the top device kernels
+        (reported, never asserted; profiled wall times run above
+        unprofiled ones)."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / calls
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        if not by_name:
+            print(f"profile {label}: not measured (the profiler saw no device time)")
+            return
+        busy = sum(by_name.values()) / calls
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"profile [{self.card}]: {label}, {calls} calls: wall {wall:.3f} ms/call, "
+              f"device busy {busy:.3f} ms/call, idle share {1 - busy / wall:.2f}; device "
+              f"ms/call by kernel: {[(n[:50], round(ms / calls, 3)) for n, ms in top]}",
+              flush=True)
+
+    def modes_path(self, x):
+        """(a) ``index.search`` in "approx", "verified" and "refined" (and
+        "bounded" beside them) at B=1024 k=10 and B=1 k=100 against the
+        f32 oracle: recall, value error, ``fallback_rows``, ms, K7's
+        launches per call.  Returns the index (bounded, for (b)) and the
+        bounded ms per cell."""
+        torch = self.torch
+        from qrag_tpu_torch.index.flat_index import DeviceFlatIndex
+        from qrag_tpu_torch.ops import topk as tk
+        from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+        t0 = time.perf_counter()
+        index = DeviceFlatIndex.from_numpy(x, topk_mode="approx", device=self.dev)
+        snap = index.device_buffers()
+        index.search(x[:1], k=10)
+        print(f"(a) selection modes [{self.card}]: {x.shape[0]:,} x 768 f32 unit rows "
+              f"(phase 5's), capacity {snap.matrix.shape[0]}; setup "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cells = self._mode_oracle(snap, self._unit(10))
+        bounded_ms = {}
+        for mode in ("approx", "verified", "refined", "bounded"):
+            index.topk_mode = mode
+            for cell in cells:
+                b, k = cell[0], cell[1]
+                k7 = dict(ct.launches)
+                k1 = sum(fused_scan.launches.values())
+                routes = dict(tk.selection_routes)
+                fb0 = index.fallback_rows
+                _, recall, err, ties = self._search_check(
+                    f"index.search {mode}", index.search, snap, cell,
+                    exact=mode in ("verified", "bounded"),
+                )
+                per_call = {t: c - k7[t] for t, c in ct.launches.items()}
+                k1_calls = sum(fused_scan.launches.values()) - k1
+                rose = {r: c - routes[r] for r, c in tk.selection_routes.items()}
+                fb = index.fallback_rows - fb0
+                want_k7 = {"approx": ("float32", 1), "verified": ("float32", 1),
+                           "refined": ("bfloat16", 1), "bounded": (None, 0)}[mode]
+                if mode != "bounded" and (
+                    per_call[want_k7[0]] != 1 or sum(per_call.values()) != 1
+                    or rose != {"scan_topk": 1, "product_sort": 0}
+                ):
+                    raise AssertionError(f"{mode} B={b}: K7 launches {per_call}, routes {rose}")
+                if mode == "bounded" and (sum(per_call.values()) or not k1_calls):
+                    raise AssertionError(f"bounded B={b}: K7 {per_call}, K1 {k1_calls}")
+                q = cell[2]
+                ms = self._events_ms(lambda: index.search(q, k), 3 if b > 1 else 10)
+                if mode == "bounded":
+                    bounded_ms[(b, k)] = ms
+                print(f"(a) index.search topk_mode={mode} B={b} k={k} [{self.card}]: "
+                      f"recall@{k} {recall:.4f} vs the f32 oracle, max |value - oracle| "
+                      f"{err:.3e}" + (f" (exact: identity equal but {ties} sub-noise tie "
+                                      f"reorders)" if mode in ("verified", "bounded") else "")
+                      + f"; fallback_rows +{fb}; {ms:.3f} ms (events, host included); "
+                      f"K7 launches per call {per_call}, K1 launches {k1_calls}", flush=True)
+                if b > 1 and mode in ("approx", "refined"):
+                    self._profile_calls(lambda: index.search(q, k), 3,
+                                        f"index.search {mode} B={b} k={k}")
+        del cells
+        self._free()
+        return index, bounded_ms
+
+    def quantized_fused(self, x):
+        """(d) the repaired fused rerank over a quantized index: /search_rerank
+        B=1 C=100 (quantum, classical, auto) equal to an unquantized
+        engine's over the same bf16 store in the same ("approx") mode."""
+        torch = self.torch
+        from qrag_tpu_torch.config import QragConfig
+        from qrag_tpu_torch.engine import QragEngine
+        from qrag_tpu_torch.ops.cuda import scan_topk as ct
+        from qrag_tpu_torch.ops.scan_topk import CAST_ROWS
+
+        t0 = time.perf_counter()
+        engines = {}
+        for name, over in (("quantized", {"quantization": "int8", "dtype": "bfloat16"}),
+                           ("unquantized", {"dtype": "bfloat16", "topk_mode": "approx"})):
+            # the rows are unit already: no host normalization pass
+            cfg = {"embedding": {"provider": "hash", "dim": 768},
+                   "index": {**over, "normalize": False}}
+            eng = QragEngine(config=QragConfig.from_dict(cfg), device=self.dev)
+            eng.index.add(x)
+            eng.index.device_buffers()
+            engines[name] = eng
+        qeng, ueng = engines["quantized"], engines["unquantized"]
+        if not torch.equal(qeng.index.device_buffers().matrix, ueng.index.device_buffers().matrix):
+            raise AssertionError("the two engines' stores differ")
+        capacity = qeng.index.device_buffers().matrix.shape[0]
+        blocks = -(-capacity // CAST_ROWS)
+        unit = self._unit(11)
+        texts = ["find the advertisement segment"]
+        rows = []
+        for rtype in ("quantum", "classical", "auto"):
+            q = texts if rtype == "auto" else unit(1)
+            k7 = sum(ct.launches.values())
+            got = qeng.search_rerank(q, k=10, candidates=100, reranker_type=rtype)
+            launched = sum(ct.launches.values()) - k7
+            want = self._aside_call(
+                lambda: ueng.search_rerank(q, k=10, candidates=100, reranker_type=rtype))
+            gi = [[h["index"] for h in r] for r in got["results"]]
+            wi = [[h["index"] for h in r] for r in want["results"]]
+            gs = np.asarray([[h["score"] for h in r] for r in got["results"]])
+            ws = np.asarray([[h["score"] for h in r] for r in want["results"]])
+            if gi != wi or not np.array_equal(gs, ws) or got["reranker_used"] != want["reranker_used"]:
+                raise AssertionError(f"quantized fused {rtype}: {gi} != {wi}")
+            if launched != blocks:
+                raise AssertionError(f"quantized fused {rtype}: K7 launched {launched} "
+                                     f"times, {blocks} f32 blocks")
+            ms = self._events_ms(
+                lambda: qeng.search_rerank(q, k=10, candidates=100, reranker_type=rtype), 5)
+            rows.append(f"{rtype} {ms:.3f} ms")
+        modes = qeng.stats()["index"]["effective_topk_modes"]
+        if modes["fused_candidates"] != "approx":
+            raise AssertionError(f"effective modes {modes}")
+        one, many = self._request_peak(qeng, unit)
+        store_f32 = capacity * 768 * 4
+        if one > store_f32 / 4:
+            raise AssertionError(f"quantized fused: a request allocates {one} bytes, "
+                                 f"the f32 store is {store_f32}")
+        print(f"(d) quantized index (int8 row scan, bf16 store) /search_rerank B=1 k=10 "
+              f"candidates=100 [{self.card}]: equal (indices, scores bit for bit) to the "
+              f"unquantized bf16-store engine in 'approx'; K7 f32 once per f32 block "
+              f"({blocks} blocks of {CAST_ROWS} rows a request); {'; '.join(rows)} "
+              f"(events, engine call); device memory a request allocates beyond the "
+              f"resident state: {one / 2**20:.1f} MiB alone, {many / 2**20:.1f} MiB at the "
+              f"peak of 4 concurrent requests (an f32 copy of the store would be "
+              f"{store_f32 / 2**20:.1f} MiB); effective modes {modes}; setup "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del engines, qeng, ueng
+        self._free()
+
+    def _request_peak(self, engine, unit):
+        """Device memory that /search_rerank B=1 C=100 allocates beyond
+        what is resident, for one request and at the peak of four
+        concurrent ones (threads, as the HTTP server's handlers run)."""
+        torch = self.torch
+        q = [unit(1) for _ in range(4)]
+
+        def call(i):
+            engine.search_rerank(q[i], k=10, candidates=100, reranker_type="quantum")
+
+        peaks = []
+        for n in (1, 4):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+        return peaks
+
+    def sharded_path(self, x, index, bounded_ms):
+        """(b) the sharded index on a 1 x 4 mesh of slots on this card
+        (bounded): identity and tie order against the oracle, allgather
+        equal to ring, the summed counters, K1 on every shard; the
+        sharded search_rerank against the unsharded engine; the sharded
+        accelerator at B=1; /search and /search_rerank through
+        ``create_server`` on a ``--sharded`` engine."""
+        torch = self.torch
+        from qrag_tpu_torch.config import MeshConfig, QragConfig
+        from qrag_tpu_torch.engine import QragEngine
+        from qrag_tpu_torch.ops.cuda import fused_scan
+        from qrag_tpu_torch.parallel.mesh import make_mesh
+        from qrag_tpu_torch.parallel.sharded_index import ShardedFlatIndex
+        from qrag_tpu_torch.serving import http_app
+
+        t0 = time.perf_counter()
+        mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=4), device=self.dev)
+        sh = ShardedFlatIndex(x, mesh, topk_mode="bounded")
+        sh.search(x[:1], k=10)
+        lay = sh.layout()
+        print(f"(b) sharded index [{self.card}]: 4 slots on {sorted({str(d) for d in mesh.devices.flat})}, "
+              f"layout {lay}; setup {time.perf_counter() - t0:.1f} s — four shards on one "
+              f"card measure the code, not a four-card scale-out", flush=True)
+        snap = index.device_buffers()
+        for cell in self._mode_oracle(snap, self._unit(12)):
+            b, k, q = cell[0], cell[1], cell[2]
+            results = {}
+            for merge in ("allgather", "ring"):
+                sh.merge = merge
+                k1 = dict(fused_scan.launches)
+                fb0, esc0 = sh.fallback_rows, sh.bounded_escalations
+                res, recall, err, ties = self._search_check(
+                    f"sharded {merge}", sh.search, snap, cell, exact=True)
+                k1_calls = {key: c - k1[key] for key, c in fused_scan.launches.items() if c != k1[key]}
+                if sum(k1_calls.values()) < 4:
+                    raise AssertionError(f"sharded B={b}: K1 launched {k1_calls} (4 shards)")
+                results[merge] = res
+                ms = self._events_ms(lambda: sh.search(q, k), 3 if b > 1 else 10)
+                print(f"(b) sharded search {merge} B={b} k={k}: identity equal to the f32 "
+                      f"oracle (tie reorders {ties}), max |value - oracle| {err:.3e}; summed "
+                      f"counters fallback_rows +{sh.fallback_rows - fb0} escalations "
+                      f"+{sh.bounded_escalations - esc0}; K1 launches per call {k1_calls}; "
+                      f"{ms:.3f} ms vs {bounded_ms[(b, k)]:.3f} unsharded bounded (events)",
+                      flush=True)
+                if merge == "allgather":
+                    self._profile_calls(lambda: sh.search(q, k), 3,
+                                        f"sharded search B={b} k={k}")
+            a, r = results["allgather"], results["ring"]
+            if not (np.array_equal(a.indices, r.indices) and np.array_equal(a.scores, r.scores)):
+                raise AssertionError(f"allgather != ring at B={b}")
+        sh.merge = "allgather"
+        # the sharded rerank against the unsharded engine over the same rows
+        cfg = QragConfig.from_dict({"embedding": {"provider": "hash", "dim": 768},
+                                    "index": {"sharded": True},
+                                    "mesh": {"data_parallel": 1, "model_parallel": 4}})
+        seng = QragEngine(config=cfg, index=sh)
+        index.topk_mode = "bounded"
+        ueng = QragEngine(config=QragConfig.from_dict(
+            {"embedding": {"provider": "hash", "dim": 768}}), index=index)
+        unit = self._unit(13)
+        for rtype in ("quantum", "classical", "auto"):
+            q = ["find the advertisement segment"] if rtype == "auto" else unit(1)
+            got = seng.search_rerank(q, k=10, candidates=100, reranker_type=rtype)
+            want = self._aside_call(
+                lambda: ueng.search_rerank(q, k=10, candidates=100, reranker_type=rtype))
+            gi = [[h["index"] for h in r] for r in got["results"]]
+            wi = [[h["index"] for h in r] for r in want["results"]]
+            gs = [[h["score"] for h in r] for r in got["results"]]
+            ws = [[h["score"] for h in r] for r in want["results"]]
+            reorders = _same_ranking(gi, gs, wi, ws, 1e-5)
+            if got["reranker_used"] != want["reranker_used"]:
+                raise AssertionError(f"sharded rerank {rtype}: {got['reranker_used']}")
+            ms = self._events_ms(
+                lambda: seng.search_rerank(q, k=10, candidates=100, reranker_type=rtype), 3)
+            ums = self._aside_call(lambda: self._events_ms(
+                lambda: ueng.search_rerank(q, k=10, candidates=100, reranker_type=rtype), 3))
+            print(f"(b) sharded search_rerank {rtype} B=1 k=10 candidates=100: equal to the "
+                  f"unsharded engine's (fidelity from raw rows vs cached features: scores "
+                  f"within 1e-5, reorders {reorders}); {ms:.3f} ms vs {ums:.3f} unsharded",
+                  flush=True)
+        # one /search and one /search_rerank through create_server on an
+        # engine configured by the --sharded flag
+        saved = {k: v for k, v in os.environ.items() if k.startswith("QRAG_")}
+        try:
+            os.environ["QRAG_MESH_MODEL_PARALLEL"] = "4"
+            parser = http_app._parser()
+            flags = http_app._configure(parser, parser.parse_args(["--sharded"]))
+        finally:
+            for key in [k for k in os.environ if k.startswith("QRAG_")]:
+                del os.environ[key]
+            os.environ.update(saved)
+        if not (flags.index.sharded and flags.mesh.model_parallel == 4):
+            raise AssertionError(f"--sharded config {flags.index} {flags.mesh}")
+        flags = QragConfig.from_dict({**flags.to_dict(),
+                                      "embedding": {"provider": "hash", "dim": 768}})
+        served = QragEngine(config=flags, index=sh)
+        q = unit(4)
+        k1 = sum(fused_scan.launches.values())
+        with self._serve(served) as port:
+            s = _post(port, "/search", {"vectors": q.tolist(), "k": 10})
+            rr = _post(port, "/search_rerank", {"vectors": q[:1].tolist(), "k": 10,
+                                                "candidates": 100})
+            stats = _get(port, "/stats")["index"]
+        k1 = sum(fused_scan.launches.values()) - k1
+        got = [[h["index"] for h in r] for r in s["results"]]
+        if got != sh.search(q, k=10).indices.tolist() or stats["layout"]["mesh"]["model"] != 4:
+            raise AssertionError(f"served sharded /search {got}; layout {stats.get('layout')}")
+        want = self._aside_call(lambda: ueng.search_rerank(q[:1], k=10, candidates=100))
+        _same_ranking([[h["index"] for h in r] for r in rr["results"]],
+                      [[h["score"] for h in r] for r in rr["results"]],
+                      [[h["index"] for h in r] for r in want["results"]],
+                      [[h["score"] for h in r] for r in want["results"]], 1e-5)
+        print(f"(b) create_server on a --sharded engine (QRAG_MESH_MODEL_PARALLEL=4): "
+              f"/search B=4 equal to the index, /search_rerank B=1 equal to the unsharded "
+              f"engine's; K1 launches {k1}; /stats layout {stats['layout']}, counters "
+              f"fallback_rows={stats['verified_fallback_rows']} "
+              f"escalations={stats['bounded_escalations']}", flush=True)
+        del seng, ueng, served, index
+        self._free()
+        # the sharded accelerator at B=1 (uniform rows: nothing prunes,
+        # every batch takes the ladder and stays exact)
+        sh.small_batch_accel = "clustered"
+        t1 = time.perf_counter()
+        sh.build_clustered()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        from qrag_tpu_torch.ops.topk import _goodness
+
+        q = self._unit(14)(1)
+        qt, ov, oi = self._oracle(snap, q, 10)
+        cell = (1, 10, q, (qt, ov, oi), _goodness(qt, snap.matrix, "l2", snap.sqnorms, snap.valid))
+        fb0, esc0 = sh.cluster_fallbacks, sh.cluster_escalations
+        _, recall, err, ties = self._search_check("sharded accelerator", sh.search, snap, cell,
+                                                  exact=True)
+        ms = self._events_ms(lambda: sh.search(cell[2], 10), 5)
+        print(f"(b) sharded accelerator (clustered, per shard) B=1 k=10: build {build_s:.2f} s; "
+              f"identity equal to the f32 oracle (tie reorders {ties}); escalations "
+              f"+{sh.cluster_escalations - esc0}, fallbacks +{sh.cluster_fallbacks - fb0}; "
+              f"{ms:.3f} ms", flush=True)
+        del sh, snap
+        self._free()
+
+    def elastic_path(self, x):
+        """(c) the elastic index on four slots of this card: a persistent
+        failure injected on one slot re-shards over three with the same
+        results and ``rebuilds == 1``."""
+        from qrag_tpu_torch.parallel.elastic import ElasticShardedIndex, Slot
+
+        t0 = time.perf_counter()
+        slots = [Slot(i, self.dev) for i in range(4)]
+        el = ElasticShardedIndex(x, devices=slots, topk_mode="bounded")
+        q = self._unit(15)(64)
+        before = el.search(q, k=10)
+        el.inject_device_failure(slots[2])
+        t1 = time.perf_counter()
+        after = el.search(q, k=10)
+        recover_s = time.perf_counter() - t1
+        if not (np.array_equal(before.indices, after.indices)
+                and np.allclose(before.scores, after.scores, rtol=1e-5, atol=1e-5)):
+            raise AssertionError("elastic: results changed across the re-shard")
+        if el.rebuilds != 1 or el.devices != [s for s in slots if s != slots[2]]:
+            raise AssertionError(f"elastic: rebuilds {el.rebuilds}, slots {el.devices}")
+        print(f"(c) elastic index [{self.card}]: 4 slots, persistent failure on slot 2: "
+              f"evicted exactly it, re-sharded over 3 ({el.layout()}), B=64 k=10 equal "
+              f"before and after; rebuilds {el.rebuilds}; recovery {recover_s:.2f} s; "
+              f"setup {t1 - t0:.1f} s", flush=True)
+        del el
+        self._free()
+
 
 def _check_exact(idx, vals, oi, ov, g, atol):
     """The repo's exactness contract (tests/test_bounded_topk.py
@@ -3253,6 +3721,7 @@ def main() -> int:
     launches.update(smoke.models_path())
     smoke.train_path()
     launches.update(smoke.accel_quantum_path())
+    launches.update(smoke.modes_sharded_path())
     kernels = []
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]
@@ -3266,6 +3735,7 @@ def main() -> int:
             "launches_ingest_path": launches.get(("ingest", key), 0),
             "launches_accel_path": launches.get(("accel", key), 0),
             "launches_quantum_path": launches.get(("quantum", key), 0),
+            "launches_sharded_path": launches.get(("sharded", key), 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -3295,6 +3765,7 @@ def main() -> int:
         "launches_ingest_path": launches[("ingest", "gather_rows")],
         "launches_accel_path": launches[("accel", "gather_rows")],
         "launches_quantum_path": launches[("quantum", "gather_rows")],
+        "launches_sharded_path": launches[("sharded", "gather_rows")],
         **{key: row[key] for key in gather_keys},
         "other_shapes": {
             f"M={m}": {key: smoke.kernel_rows[("gather_rows", m)][key] for key in gather_keys}
@@ -3309,13 +3780,17 @@ def main() -> int:
                 "route": "cuda",
                 "source": "qrag_tpu_torch/csrc/scan_topk.cu",
                 "replaces": "qrag_tpu/ops/pallas/scan_topk.py:74 (_scan_topk_kernel)",
-                # 0 expected: like the reference's, on no dispatched path
+                # 0 on the default path; the candidate selection of the
+                # approx / verified / refined modes (phase 10)
                 "launches": launches[("scan_topk", arm)],
                 "launches_accel_path": launches[("accel", ("scan_topk", arm))],
                 "launches_quantum_path": launches[("quantum", ("scan_topk", arm))],
+                "launches_modes_path": launches[("modes", ("scan_topk", arm))],
+                "launches_sharded_path": launches[("sharded", ("scan_topk", arm))],
                 **{key: row[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "library_composite_ms", "library_composite_device_ms", "gemm_floor_ms",
+                    "library_composite_ms", "library_composite_device_ms",
+                    "library_composite_bf16_ms", "gemm_floor_ms",
                     "device_ms", "host_us", "timing_launches", "kernels_ms")},
             })
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -12,15 +12,17 @@ row-gather kernel (``ops.gather_rows``) and selects per query between
 the fidelity and the cosine expert.
 
 ``quantization="int8"`` builds the ``QuantizedFlatIndex`` (row or
-window scan, exact or gather-free scores); ``bounded_scan="int8"``
-runs the bounded scan, and the fused rerank's candidate generation,
-on int8 codes.  With ``small_batch_accel`` set, small batches of
-``search_rerank`` take their candidates from the index's clustered
-accelerator (``ops.cluster_topk``).
+window scan, exact or gather-free scores); its fused reranks take their
+candidates from the store matrix in the index's "approx" mode (the
+fused scan + top-k kernel, ``ops.topk``), as the reference does.
+``bounded_scan="int8"`` runs the bounded scan, and the fused rerank's
+candidate generation, on int8 codes.  With ``small_batch_accel`` set,
+small batches of ``search_rerank`` take their candidates from the
+index's clustered accelerator (``ops.cluster_topk``).
 
-Not ported yet (raise NotImplementedError): the sharded index
-(ROADMAP.md, Queue 1 slice 6); the fused reranks over a quantized index
-(slice 5: the reference runs them on the unported approx scan).
+``index.sharded`` builds the row-sharded index over a mesh of slots
+(``parallel.sharded_index``; ``index.elastic`` wraps it in
+``parallel.elastic``), and ``search_rerank`` takes its sharded arm.
 """
 
 from __future__ import annotations
@@ -38,19 +40,13 @@ from qrag_tpu_torch.config import QragConfig
 from qrag_tpu_torch.documents import Document
 from qrag_tpu_torch.index.flat_index import DeviceFlatIndex, SearchResult
 from qrag_tpu_torch.index.quantized_index import QuantizedFlatIndex
+from qrag_tpu_torch.ops import topk as topk_ops
 from qrag_tpu_torch.ops.topk import _finalize, flat_scan_topk, top_k
 from qrag_tpu_torch.pipeline.embeddings import Embedder, get_embedder
 from qrag_tpu_torch.reranker.controller import RerankerController
 from qrag_tpu_torch.utils.metrics import GLOBAL_METRICS, Metrics
 
 logger = logging.getLogger(__name__)
-
-_QUANTIZED_FUSED = (
-    "the fused rerank over a quantized index is not ported yet "
-    "(ROADMAP.md, Queue 1 slice 5); use reranker_type='none' or an "
-    "unquantized index"
-)
-
 
 def _fused_candidates(
     query_vecs: torch.Tensor,
@@ -110,9 +106,14 @@ def _fused_candidates(
                 candidates, metric=metric, valid_rows=valid_rows,
             )
         return _finalize(vals, idx, metric)
+    # "verified" has a host patch-up stage: the fused candidates take
+    # its approx pass (the rerank re-scores the set either way), with no
+    # oversampling of their own
     return flat_scan_topk(
         query_vecs.to(corpus.dtype), corpus, candidates, metric=metric,
-        corpus_sqnorms=corpus_sqnorms, valid_rows=valid_rows, mode=topk_mode,
+        corpus_sqnorms=corpus_sqnorms, valid_rows=valid_rows,
+        mode="approx" if topk_mode in ("verified", "bounded", "clustered") else topk_mode,
+        oversample=1,
     )
 
 
@@ -227,12 +228,41 @@ def fused_search_rerank_routed(
 
 
 def _index_cls_and_kwargs(config: QragConfig):
-    """Single source of truth for building an index from config
-    (single device)."""
+    """Single source of truth for building an index from config.  The
+    sharded family lays its mesh (``config.mesh``) on the device the
+    caller passes."""
     if config.index.sharded:
-        raise NotImplementedError(
-            "the sharded index is not ported yet (ROADMAP.md, Queue 1 slice 6)"
+        from qrag_tpu_torch.parallel.sharded_index import ShardedFlatIndex
+
+        mode = config.index.topk_mode
+        if mode == "refined":
+            # the sharded scan has no host-side candidate re-score
+            # stage; the downgrade is loud (stats show the mode)
+            logger.warning(
+                "sharded index does not support topk_mode='refined'; "
+                "serving with 'approx' (per-shard candidate selection + "
+                "exact merge) — use 'verified'/'bounded'/'exact' for "
+                "exact sharded results",
+            )
+            mode = "approx"
+        kw = dict(
+            topk_mode=mode,
+            store_dtype=config.index.dtype,
+            merge=config.index.shard_merge,
+            bounded_query_dtype=config.index.bounded_query_dtype,
+            small_batch_accel=config.index.small_batch_accel,
+            accel_max_batch=config.index.accel_max_batch,
+            cluster_group_rows=config.index.cluster_group_rows,
+            cluster_budget=config.index.cluster_budget or None,
+            accel_read_cap=config.index.accel_read_cap,
+            mesh_config=config.mesh,
         )
+        if config.index.elastic:
+            from qrag_tpu_torch.parallel.elastic import ElasticShardedIndex
+
+            # elastic owns its slot set (re-sharding shrinks it)
+            return ElasticShardedIndex, kw
+        return ShardedFlatIndex, kw
     kw = dict(
         row_pad_multiple=config.index.row_pad_multiple,
         use_pallas=config.index.use_pallas,
@@ -368,6 +398,12 @@ class QragEngine:
                 return {"queries": qv.shape[0], "results": [], "reranker_used": reranker_type}
             c_eff = min(candidates, n)
             k_eff = min(k, c_eff)
+            if not self.index.has_device_snapshot:
+                # sharded index: per-shard scan + exact merge + the
+                # candidates' rows gathered across shards
+                return self._search_rerank_sharded(
+                    qv, query_texts, n, k_eff, c_eff, reranker_type
+                )
             q = torch.from_numpy(np.ascontiguousarray(qv)).to(self.device)
             if reranker_type == "auto" and query_texts is None:
                 # no text: the routing truth table cannot run
@@ -378,8 +414,6 @@ class QragEngine:
                 retr_scores = scores
                 reranker_type = "none"  # honest label: no rerank ran
             else:
-                if isinstance(self.index, QuantizedFlatIndex):
-                    raise NotImplementedError(_QUANTIZED_FUSED)
                 snap = self.index.device_buffers()  # one atomic generation
                 if reranker_type == "quantum":
                     fid, idx, retr = self._fused_quantum(
@@ -462,8 +496,11 @@ class QragEngine:
         n = self.index.ntotal
         if n == 0:
             return {"queries": qv.shape[0], "results": [], "reranker_used": reranker_type}
-        if isinstance(self.index, QuantizedFlatIndex):
-            raise NotImplementedError(_QUANTIZED_FUSED)
+        if not self.index.has_device_snapshot:
+            raise ValueError(
+                "search_rerank_pipelined needs a single-device index; use "
+                "search_rerank on a sharded one"
+            )
         c_eff = min(candidates, n)
         k_eff = min(k, c_eff)
         snap = self.index.device_buffers()  # one generation for every stage
@@ -515,9 +552,10 @@ class QragEngine:
                 or _auto_budget(candidates, groups.group_rows),
                 "cluster_probe": self.index.small_batch_accel == "clustered_probe",
             }
-        if self.index.topk_mode == "bounded" and self.index._bounded_eligible(
-            candidates
-        ):
+        mode = self.index.topk_mode
+        if mode == "bounded":
+            if not self.index._bounded_eligible(candidates):
+                return "exact", {}
             # the bufs must derive from the snapshot the graph gathers from
             kind = self.index.bounded_scan
             if kind == "int8":
@@ -529,7 +567,54 @@ class QragEngine:
                 "bounded_query_store": self.index.bounded_query_dtype == "store",
                 "bounded_kind": kind,
             }
-        return "exact", {}
+        if mode == "verified":
+            # its host patch-up stage cannot run between the fused stages;
+            # the rerank re-scores the approx set (``effective_topk_modes``)
+            return "approx", {}
+        return mode, {}
+
+    def _search_rerank_sharded(
+        self,
+        qv: np.ndarray,
+        query_texts: Optional[List[str]],
+        n: int,
+        k_eff: int,
+        c_eff: int,
+        reranker_type: str,
+    ) -> Dict[str, Any]:
+        """The sharded index's arm of ``search_rerank``: the same
+        response and routing, the index's per-shard scan, merge and
+        cross-shard row gather.  Its retrieval scores come finalized."""
+        index = self.index
+        n_qubits = self.config.quantum.n_qubits
+        # the batch splits over the mesh's data axis: pad it to a multiple
+        b = qv.shape[0]
+        bp = -(-b // index._dp) * index._dp
+        if bp != b:
+            qv = np.pad(qv, ((0, bp - b), (0, 0)))
+        q = torch.from_numpy(np.ascontiguousarray(qv, np.float32)).to(index.device)
+        if reranker_type == "auto" and query_texts is None:
+            reranker_type = "quantum"
+        if reranker_type in ("auto", "classical"):
+            route = np.zeros((bp,), dtype=bool)
+            if reranker_type == "auto":
+                route[:b] = [
+                    self.controller.select_reranker(t) == "quantum" for t in query_texts
+                ]
+            fid, idx, retr = index.search_rerank_routed_device(
+                q, torch.from_numpy(route), k_eff, c_eff, n_qubits
+            )
+        elif reranker_type == "quantum":
+            fid, idx, retr = index.search_rerank_device(q, k_eff, c_eff, n_qubits)
+        else:  # "none" / "retrieval"
+            fid, idx = index.search_device(q, k_eff)
+            retr = fid  # finalized retrieval scores, as the unsharded arm
+            reranker_type = "none"
+        results = self._build_hits(
+            fid.cpu().numpy()[:b], idx.cpu().numpy()[:b], retr.cpu().numpy()[:b], n
+        )
+        self.metrics.incr("search_rerank_requests")
+        return {"queries": b, "results": results, "reranker_used": reranker_type}
 
     def _build_hits(
         self,
@@ -572,7 +657,6 @@ class QragEngine:
             batch_sizes = self.config.serving.warmup_batch_buckets
         k = min(10, n)  # /search and /search_rerank serving default
         candidates = min(100, n)  # /search_rerank serving default
-        fused = not isinstance(self.index, QuantizedFlatIndex)
         # the clustered accelerator's k-means is seconds at 1M rows: build
         # it here, not on the first live small batch (k=1 is the loosest
         # gate, so a corpus eligible at any serving k builds)
@@ -581,8 +665,7 @@ class QragEngine:
         for b in batch_sizes:
             q = np.zeros((b, self.index.d), dtype=np.float32)
             self.index.search(q, k=k)
-            if fused:
-                self.search_rerank(q, k=min(k, candidates), candidates=candidates)
+            self.search_rerank(q, k=min(k, candidates), candidates=candidates)
         # the doc-list rerank's device ops: the batcher's pair function
         # and the single-request scorer of the configured encoding
         qr = self.controller.quantum_reranker
@@ -632,9 +715,13 @@ class QragEngine:
         """The mode each query path actually runs with."""
         idx = self.index
         mode = idx.topk_mode
+        if not idx.has_device_snapshot:
+            # sharded family: search == fused candidates == the per-shard
+            # mode ("verified" and "bounded" run for real)
+            return {"search": mode, "fused_candidates": mode, "pipelined_stage1": mode}
         fused = mode
-        if isinstance(idx, QuantizedFlatIndex):
-            fused = "not ported"
+        if mode == "verified":
+            fused = "approx"
         elif mode == "bounded":
             c = min(100, max(idx.ntotal, 1))  # serving default budget
             # name-only: an observability call never triggers an upload
@@ -670,8 +757,12 @@ class QragEngine:
             "cluster_escalations": self.index.cluster_escalations,
             "cluster_fallbacks": self.index.cluster_fallbacks,
             "effective_topk_modes": self._effective_topk_modes(),
+            # candidate selections of the approx / verified / refined
+            # modes by route: the fused scan + top-k kernel, or the f32
+            # product + sort past its k limit
+            "selection_routes": dict(topk_ops.selection_routes),
         }
-        if isinstance(self.index, QuantizedFlatIndex):
+        if hasattr(self.index, "layout"):
             index_stats["layout"] = self.index.layout()
         return {
             "index": index_stats,

@@ -26,9 +26,12 @@ search (``ops.cluster_topk``), which reads only the certified groups;
 structure is built lazily per snapshot generation (``build_clustered``)
 and its k-means assignment persists with ``save_native``.
 
-Not ported yet (constructor raises): the approx/verified/refined modes
-(ROADMAP.md, Queue 1 slice 5; the quantized index runs its own search),
-``use_pallas``.
+The other modes ("exact", "approx", "verified", "refined") run through
+``ops.topk``: their candidates come from the fused scan + top-k kernel
+(``ops.scan_topk``), and "verified" patches the rows that fail its
+certificate with the exact sort in ``search`` (``fallback_rows``).
+``use_pallas`` selects the reference's Pallas scans and is refused: the
+port's kernels run on every CUDA tensor.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 
 from qrag_tpu_torch.device import resolve_device
 from qrag_tpu_torch.index import faiss_io
-from qrag_tpu_torch.ops.topk import _finalize, flat_scan_topk
+from qrag_tpu_torch.ops.topk import _finalize, flat_scan_topk, scan_topk_verified
 
 MANIFEST_NAME = "manifest.json"
 VECTORS_NAME = "vectors.npy"
@@ -115,9 +118,8 @@ class SearchResult:
 class DeviceFlatIndex:
     """Exact flat index with the corpus resident in device memory."""
 
-    # topk modes this class searches with; a subclass that routes
-    # ``search_device`` itself (the quantized index) widens it
-    _topk_modes = ("exact", "bounded")
+    # one device snapshot (``device_buffers``); the sharded family has none
+    has_device_snapshot = True
 
     def __init__(
         self,
@@ -151,11 +153,6 @@ class DeviceFlatIndex:
             raise ValueError(f"unknown store_dtype {store_dtype!r}")
         if small_batch_accel not in ("none", "clustered", "clustered_probe"):
             raise ValueError(f"unknown small_batch_accel {small_batch_accel!r}")
-        if topk_mode not in self._topk_modes:
-            raise NotImplementedError(
-                f"topk_mode {topk_mode!r} is not ported to qrag_tpu_torch "
-                "yet (ROADMAP.md, Queue 1 slice 5); use 'bounded' or 'exact'"
-            )
         if use_pallas:
             raise NotImplementedError(
                 "use_pallas selects the reference's Pallas scans; the port's "
@@ -183,7 +180,8 @@ class DeviceFlatIndex:
         self.row_pad_multiple = max(8, int(row_pad_multiple))
         self.topk_mode = topk_mode
         self.store_dtype = _DTYPES[store_dtype]
-        self.fallback_rows = 0  # bounded-mode exact full sorts
+        # verified-mode exact re-runs (rows) + bounded-mode full sorts
+        self.fallback_rows = 0
         self.bounded_escalations = 0  # bounded-mode 4x-budget re-certs
         self.cluster_fallbacks = 0  # accel: chunked full scan ran
         self.cluster_escalations = 0  # accel: 4x-budget tier ran
@@ -510,7 +508,8 @@ class DeviceFlatIndex:
         """Device-level search: (B, d) queries -> finalized (scores,
         indices) tensors, padded rows masked out.  The accelerator
         routes here only once its structure is built (``search`` and
-        ``build_clustered`` build it)."""
+        ``build_clustered`` build it).  "verified" runs as "approx"
+        here (no host patch-up); ``search`` runs it for real."""
         queries = queries.to(self.device)
         if (
             self._accel_eligible(queries.shape[0], k)
@@ -553,6 +552,15 @@ class DeviceFlatIndex:
                 self.cluster_fallbacks += int(fell_back)
                 self.cluster_escalations += int(escalated)
             scores, indices = _finalize(vals, idx, self.metric)
+        elif self.topk_mode == "verified":
+            snap = self.device_buffers()
+            scores, indices, n_bad = scan_topk_verified(
+                q.to(self.store_dtype), snap.matrix, k_eff, metric=self.metric,
+                corpus_sqnorms=snap.sqnorms, valid_rows=snap.valid,
+            )
+            with self._stats_lock:
+                self.fallback_rows += n_bad
+            scores, indices = torch.from_numpy(scores), torch.from_numpy(indices)
         elif self._bounded_eligible(k_eff):
             vals, idx, fell_back, _, escalated = self._bounded_search(q, k_eff)
             # whole-batch events: the full sort ran / the 4x tier ran

@@ -50,10 +50,6 @@ from qrag_tpu_torch.ops.window_scan import (
 class QuantizedFlatIndex(DeviceFlatIndex):
     """DeviceFlatIndex whose scan runs on int8 with exact refinement."""
 
-    # the quantized scan is pre-refinement approximate: the index runs
-    # its own ``search_device`` under the reference's forced "approx"
-    _topk_modes = ("approx",)
-
     def __init__(
         self,
         *args,
@@ -64,6 +60,8 @@ class QuantizedFlatIndex(DeviceFlatIndex):
         **kwargs,
     ):
         kwargs.setdefault("store_dtype", "bfloat16")
+        # the quantized scan is pre-refinement approximate; the fused
+        # rerank's candidates come from the store matrix in this mode
         kwargs["topk_mode"] = "approx"
         if scan not in ("window", "row"):
             raise ValueError(f"unknown quantized scan mode {scan!r}")

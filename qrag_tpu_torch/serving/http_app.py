@@ -23,9 +23,11 @@ Handler-level failures return ``{"error": str}`` with HTTP 200 (the
 reference's behavior), 400/404 for protocol problems.  ``--batching``
 coalesces concurrent /search, /search_rerank (except "auto") and
 /rerank requests into device batches (``serving/batcher.py``).
-``--sharded`` and ``--elastic`` are not ported yet (ROADMAP.md, Queue 1
-slice 6).  ``--bounded-scan int8`` and ``--lean-scan`` select the int8
-retrieval modes; ``--small-batch-accel`` the clustered accelerator of
+``--sharded`` shards the corpus rows over the mesh's slots (the mesh
+from ``QRAG_MESH_*``: ``QRAG_MESH_MODEL_PARALLEL=4`` puts four shards on
+one card), ``--shard-merge`` picks the merge, ``--elastic`` re-shards
+over the surviving slots after a failure.  ``--bounded-scan int8`` and
+``--lean-scan`` select the int8 retrieval modes; ``--small-batch-accel`` the clustered accelerator of
 small batches.  Requests run on the handler threads, each launching
 the kernels on its own current CUDA stream; with ``--batching`` the
 batcher's worker thread runs the device calls.
@@ -67,7 +69,6 @@ SERVICE_INFO = {
     },
 }
 
-_NOT_PORTED = "not ported to qrag_tpu_torch yet (ROADMAP.md, Queue 1 slice 6)"
 
 API_DOCS = {
     "service": SERVICE_INFO["message"],
@@ -357,9 +358,11 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--topk-mode",
         default=None,
-        choices=["exact", "bounded"],
+        choices=["exact", "approx", "verified", "refined", "bounded"],
         help="top-k selection mode: 'bounded' = provably-exact "
-        "norm-bounded window pruning (ops/bounded_topk.py)",
+        "norm-bounded window pruning (ops/bounded_topk.py; also "
+        "--sharded); approx/verified/refined select their candidates "
+        "with the fused scan + top-k kernel (ops/topk.py)",
     )
     parser.add_argument(
         "--bounded-scan",
@@ -408,8 +411,24 @@ def _parser() -> argparse.ArgumentParser:
         action="store_true",
         help="coalesce concurrent requests into device batches",
     )
-    for flag in ("--sharded", "--elastic"):
-        parser.add_argument(flag, action="store_true", help=f"{_NOT_PORTED}")
+    parser.add_argument(
+        "--sharded",
+        action="store_true",
+        help="shard corpus rows over the mesh's slots (mesh from QRAG_MESH_* "
+        "env / config; parallel/sharded_index.py)",
+    )
+    parser.add_argument(
+        "--shard-merge",
+        default=None,
+        choices=["allgather", "ring"],
+        help="per-shard top-k merge strategy (with --sharded)",
+    )
+    parser.add_argument(
+        "--elastic",
+        action="store_true",
+        help="with --sharded: survive the loss of slots by re-sharding over "
+        "the rest (parallel/elastic.py)",
+    )
     return parser
 
 
@@ -417,10 +436,18 @@ def _configure(parser: argparse.ArgumentParser, args) -> QragConfig:
     """The config the flags select (env overrides first), after the
     reference's argument checks; each index choice is also written to
     the env channel, which engine bundles re-read (``QragEngine.load``)."""
-    for flag in ("sharded", "elastic"):
-        if getattr(args, flag):
-            parser.error(f"--{flag} is {_NOT_PORTED}")
     config = QragConfig().with_env_overrides()
+    if (args.shard_merge or args.elastic) and not args.sharded:
+        parser.error("--shard-merge/--elastic require --sharded")
+    if args.lean_scan and args.sharded:
+        parser.error("--lean-scan is a single-device index mode")
+    if args.bounded_scan == "int8" and args.sharded:
+        # the sharded bounded path scans bf16: accepting the flag would
+        # serve bf16 while the operator believes int8 is active
+        parser.error(
+            "--bounded-scan int8 is not implemented for --sharded "
+            "(the sharded bounded path scans bf16); drop one flag"
+        )
     if args.topk_mode and args.lean_scan:
         parser.error("--lean-scan fixes its own scan mode")
     topk_mode = args.topk_mode or config.index.topk_mode
@@ -436,11 +463,17 @@ def _configure(parser: argparse.ArgumentParser, args) -> QragConfig:
     }
     if args.lean_scan:
         index_over.update(quantization="int8", quant_scan="window", exact_scores=False)
+    if args.sharded:
+        index_over.update(
+            sharded=True, shard_merge=args.shard_merge or config.index.shard_merge
+        )
+        if args.elastic or config.index.elastic:
+            index_over["elastic"] = True
     for name, value in index_over.items():
         if value is None:
             continue
         config = replace(config, index=replace(config.index, **{name: value}))
-        env = "0" if value is False else str(value)
+        env = {False: "0", True: "1"}.get(value, str(value))
         os.environ[f"QRAG_INDEX_{name.upper()}"] = env
     if args.embedding_provider:
         config = replace(
@@ -468,7 +501,7 @@ def main(argv=None) -> None:
                 )
         else:
             cls_, kw = _index_cls_and_kwargs(config)
-            kw.pop("row_pad_multiple")
+            kw.pop("row_pad_multiple", None)
             index = cls_.load_native(args.index, device=args.device, **kw)
             engine = QragEngine(config=config, index=index)
     elif args.index:

@@ -101,9 +101,17 @@ def test_bundle_written_by_port_reads_in_jax(engines, tmp_path):
 
 
 def test_unported_paths_raise(engines):
-    _, te = engines
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TEngine(config=QragConfig.from_dict({"index": {"sharded": True}}), device="cpu")
+    je, te = engines
+    # the sharded index is ported: over the bundle's rows on 4 cpu slots
+    # it answers as the unsharded engines do
+    sh_cfg = QragConfig.from_dict(
+        {**CFG, "index": {"sharded": True}, "mesh": {"model_parallel": 4}}
+    )
+    sharded = TEngine(config=sh_cfg, device="cpu")
+    sharded.index.add(te.index._host_vectors, te.index.metadata)
+    assert sharded.index.layout()["mesh"] == {"data": 1, "model": 4}
+    q = _queries(8, 3)
+    np.testing.assert_array_equal(sharded.search(q, k=10).indices, je.search(q, k=10).indices)
     # the trained embedder and the cross-encoder scorer are ported now
     trained = TEngine(config=QragConfig.from_dict(
         {"embedding": {"provider": "trained", "dim": 8},
@@ -123,15 +131,33 @@ def test_unported_paths_raise(engines):
     assert _hits(te_sv.search_rerank_pipelined(q))[0] == _hits(ot)[0]
     out = te_sv.rerank("find the ad", [Document("a", "text")], reranker_type="quantum")
     assert out["reranker_used"] == "quantum"
-    quant = TEngine(config=QragConfig.from_dict(
+    # the fused reranks over a quantized index: candidates from the bf16
+    # store in the index's "approx" mode, as the JAX engine takes them —
+    # 64 rows (the exact sort) and 6,000 (the scan_topk selection)
+    q_cfg = QragConfig.from_dict(
         {"index": {"quantization": "int8"}, "embedding": {"provider": "hash", "dim": D}}
-    ), device="cpu")
-    quant.index.add(_queries(7, 64))
-    for rtype in ("quantum", "auto", "classical"):  # the fused reranks over int8 codes
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quant.search_rerank(["find the ad"], reranker_type=rtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant.search_rerank_pipelined(_queries(7, 1))
+    )
+    for rows in (64, 6000):
+        quant = TEngine(config=q_cfg, device="cpu")
+        jquant = JEngine(config=q_cfg)
+        quant.index.add(_queries(7, rows))
+        jquant.index.add(_queries(7, rows))
+        texts = ["find the ad", "hello there"]
+        for rtype in ("quantum", "auto", "classical"):
+            ot = quant.search_rerank(texts, reranker_type=rtype)
+            oj = jquant.search_rerank(texts, reranker_type=rtype)
+            assert ot["reranker_used"] == oj["reranker_used"] == rtype
+            assert _hits(ot)[0] == _hits(oj)[0]
+            # fidelities / cosines: f32 sums in another order
+            np.testing.assert_allclose(_hits(ot)[1], _hits(oj)[1], rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(_hits(ot)[2], _hits(oj)[2], rtol=1e-5, atol=1e-4)
+        qv = _queries(9, 5)
+        ot, oj = quant.search_rerank_pipelined(qv, micro_batch=2), jquant.search_rerank_pipelined(qv, micro_batch=2)
+        assert _hits(ot)[0] == _hits(oj)[0]
+        np.testing.assert_allclose(_hits(ot)[1], _hits(oj)[1], rtol=1e-5, atol=1e-6)
+    assert quant.stats()["index"]["effective_topk_modes"] == {
+        "search": "approx", "fused_candidates": "approx", "pipelined_stage1": "approx"
+    }
     with pytest.raises(ValueError):
         te.search_rerank(_queries(5, 1), reranker_type="bogus")
 
@@ -203,12 +229,29 @@ def test_http_surface(bundle):
     assert not thread.is_alive()
 
 
-def test_server_flags_not_ported():
-    from qrag_tpu_torch.serving.http_app import main
+def test_server_flags_not_ported(monkeypatch):
+    """The sharded flags are ported: they select the sharded (elastic)
+    index and write the env channel; the reference's parser errors stand."""
+    from qrag_tpu_torch.serving.http_app import _configure, _parser
 
-    for flag in ("--sharded", "--elastic"):
+    # _configure writes the env channel: give it a scratch copy
+    monkeypatch.setattr(
+        os, "environ", {k: v for k, v in os.environ.items() if not k.startswith("QRAG_")}
+    )
+    parser = _parser()
+    for bad in (["--elastic"], ["--shard-merge", "ring"], ["--sharded", "--lean-scan"],
+                ["--sharded", "--bounded-scan", "int8"]):
         with pytest.raises(SystemExit):
-            main([flag])
+            _configure(parser, parser.parse_args(bad))
+    cfg = _configure(parser, parser.parse_args(["--sharded", "--shard-merge", "ring", "--elastic"]))
+    assert (cfg.index.sharded, cfg.index.shard_merge, cfg.index.elastic) == (True, "ring", True)
+    assert os.environ["QRAG_INDEX_SHARD_MERGE"] == "ring"
+    assert os.environ["QRAG_INDEX_SHARDED"] == os.environ["QRAG_INDEX_ELASTIC"] == "1"
+    del os.environ["QRAG_INDEX_ELASTIC"]
+    cfg = _configure(parser, parser.parse_args(["--sharded", "--topk-mode", "verified"]))
+    assert (cfg.index.shard_merge, cfg.index.elastic, cfg.index.topk_mode) == (
+        "ring", False, "verified"
+    )
 
 
 def test_port_imports_no_jax():
@@ -234,7 +277,8 @@ def test_port_imports_no_jax():
         "       'serving.devreload', 'parallel', 'parallel.train', 'models.checkpoint',\n"
         "       'models.train_cli', 'models.recall_eval', 'models.rerank_eval',\n"
         "       'models.distill', 'ops.cluster_topk', 'ops.circuit',\n"
-        "       'index.native_store', 'utils.profiling'}\n"
+        "       'index.native_store', 'utils.profiling', 'parallel.mesh',\n"
+        "       'parallel.sharded_index', 'parallel.elastic'}\n"
         "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
         "banned = ('jax', 'qrag_tpu', 'pydantic', 'optax', 'orbax', 'flax')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"

@@ -559,3 +559,125 @@ def test_gpu_native_store_to_device_index(cuda, tmp_path):
     assert idx.device.type == "cuda"
     np.testing.assert_array_equal(idx.search(x[:4], 5).indices, want)
     np.testing.assert_array_equal(host, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["approx", "verified", "refined"])
+def test_gpu_topk_modes_select_through_scan_topk(cuda, mode):
+    """approx / verified / refined pick their candidates with the
+    scan_topk kernel (f32 compute; bf16 for refined: one launch a call)
+    and equal the same call on the CPU, where the twin selects.  Dyadic
+    inputs, exact in bf16: every score is exact in any order, so
+    indices (ties to the lower row, planted duplicates) and values are
+    bit for bit the CPU's."""
+    from qrag_tpu_torch.ops import topk as tk
+    from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randint(-8, 9, (20000, 64), generator=g, device=cuda) / 16
+    x[5::997] = x[3]
+    valid = torch.rand(20000, generator=g, device=cuda) > 0.1
+    sq = (x * x).sum(1)
+    q = torch.randint(-8, 9, (64, 64), generator=g, device=cuda) / 16
+    for metric in ("l2", "ip"):
+        for k in (10, 100):
+            before = dict(ct.launches)
+            if mode == "verified":
+                got = tk.scan_topk_verified(q, x, k, metric, sq, valid)
+                want = tk.scan_topk_verified(q.cpu(), x.cpu(), k, metric, sq.cpu(), valid.cpu())
+                got, want = (got[0], got[1], got[2]), (want[0], want[1], want[2])
+                assert got[2] == want[2]
+            else:
+                got = tk.flat_scan_topk(q, x, k, metric, sq, valid, mode=mode)
+                want = tk.flat_scan_topk(q.cpu(), x.cpu(), k, metric, sq.cpu(), valid.cpu(), mode=mode)
+                got = [t.cpu().numpy() for t in got]
+                want = [t.numpy() for t in want]
+            rose = {t: c - before[t] for t, c in ct.launches.items()}
+            assert rose == ({"float32": 0, "bfloat16": 1} if mode == "refined"
+                            else {"float32": 1, "bfloat16": 0})
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_gpu_wide_selection_and_verified_jit(cuda):
+    """k x oversample past the kernel's 1024 takes the counted product +
+    sort route on the card, equal to the CPU's; at or under it, one
+    launch."""
+    from qrag_tpu_torch.ops import topk as tk
+    from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randint(-8, 9, (30000, 32), generator=g, device=cuda) / 16
+    q = torch.randint(-8, 9, (16, 32), generator=g, device=cuda) / 16
+    for k, route in ((100, "product_sort"), (10, "scan_topk")):
+        routes, before = dict(tk.selection_routes), sum(ct.launches.values())
+        v, i, nb = tk.scan_topk_verified_jit(q, x, k)
+        assert {r: c - routes[r] for r, c in tk.selection_routes.items()}[route] == 1
+        assert sum(ct.launches.values()) - before == (route == "scan_topk")
+        wv, wi, wnb = tk.scan_topk_verified_jit(q.cpu(), x.cpu(), k)
+        assert int(nb) == int(wnb)
+        assert torch.equal(i.cpu(), wi) and torch.equal(v.cpu(), wv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["allgather", "ring"])
+def test_gpu_sharded_bounded_launches_k1_per_shard(cuda, merge):
+    """A 4-slot sharded index on one card (bounded): the packed window
+    scan kernel launches on every shard, and the merged result equals
+    the same index on the CPU (the twins) and the exact sort."""
+    from qrag_tpu_torch.config import MeshConfig
+    from qrag_tpu_torch.index.flat_index import DeviceFlatIndex
+    from qrag_tpu_torch.ops.cuda import fused_scan
+    from qrag_tpu_torch.parallel.mesh import make_mesh
+    from qrag_tpu_torch.parallel.sharded_index import ShardedFlatIndex
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((4 * 8192, 64)).astype(np.float32)
+    x[7::4001] = x[11]  # duplicates across shards
+    q = rng.standard_normal((33, 64)).astype(np.float32)
+    cfg = MeshConfig(data_parallel=1, model_parallel=4)
+    gpu = ShardedFlatIndex(x, make_mesh(cfg, device=cuda), topk_mode="bounded", merge=merge)
+    cpu = ShardedFlatIndex(x, make_mesh(cfg, device="cpu"), topk_mode="bounded", merge=merge)
+    exact = DeviceFlatIndex.from_numpy(x, topk_mode="exact", device="cpu")
+    for k in (10, 64):
+        before = sum(fused_scan.launches.values())
+        got = gpu.search(q, k=k)
+        assert sum(fused_scan.launches.values()) - before >= 4
+        want = cpu.search(q, k=k)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_array_equal(got.indices, exact.search(q, k=k).indices)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["approx", "verified", "refined"])
+def test_gpu_bf16_store_selects_a_block_at_a_time(cuda, monkeypatch, mode):
+    """A bf16 corpus reaches the kernel as f32 blocks (``f32_blocks``):
+    one launch a block, and the answer the same call gives on the CPU
+    (dyadic inputs, exact in bf16 and in any summation order: indices
+    and values bit for bit)."""
+    from qrag_tpu_torch.ops import scan_topk as ts
+    from qrag_tpu_torch.ops import topk as tk
+    from qrag_tpu_torch.ops.cuda import scan_topk as ct
+
+    monkeypatch.setattr(ts, "CAST_ROWS", 4096)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = (torch.randint(-8, 9, (20000, 64), generator=g, device=cuda) / 16).to(torch.bfloat16)
+    x[4095], x[4096] = x[3], x[3]  # twins across a block edge
+    q = torch.randint(-8, 9, (16, 64), generator=g, device=cuda) / 16
+    q[0] = x[3].float()
+    before = dict(ct.launches)
+    if mode == "verified":
+        got = tk.scan_topk_verified(q, x, 10, "l2")
+        want = tk.scan_topk_verified(q.cpu(), x.cpu(), 10, "l2")
+        assert got[2] == want[2] == 0
+    else:
+        got = [t.cpu().numpy() for t in tk.flat_scan_topk(q, x, 10, "l2", mode=mode)]
+        want = [t.numpy() for t in tk.flat_scan_topk(q.cpu(), x.cpu(), 10, "l2", mode=mode)]
+    rose = {t: c - before[t] for t, c in ct.launches.items()}
+    assert rose == ({"float32": 0, "bfloat16": 5} if mode == "refined"
+                    else {"float32": 5, "bfloat16": 0})
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert {3, 4095, 4096} <= set(got[1][0].tolist())

@@ -155,14 +155,17 @@ def test_unported_options_raise_and_device_default(monkeypatch):
         assert TIndex(d=8, device="cpu", small_batch_accel=arm).small_batch_accel == arm
     with pytest.raises(ValueError):
         TIndex(d=8, device="cpu", small_batch_accel="ivf")
-    for kw in (
-        {"topk_mode": "approx"},
-        {"topk_mode": "verified"},
-        {"topk_mode": "refined"},
-        {"use_pallas": True},
-    ):
-        with pytest.raises(NotImplementedError):
-            TIndex(d=8, device="cpu", **kw)
+    # approx / verified / refined are ported: the same hits as the JAX
+    # index in that mode (refined: the planted row first, as its own
+    # contract; tests/test_torch_topk_modes.py holds it to JAX's)
+    x, q = _data(12, 5000, 24, 3)
+    for mode in ("approx", "verified"):
+        ti = TIndex.from_numpy(x, topk_mode=mode, device="cpu")
+        _assert_same_search(ti, JIndex.from_numpy(x, topk_mode=mode), q, 5)
+    ti = TIndex.from_numpy(x, topk_mode="refined", device="cpu")
+    assert ti.search(x[99:100], k=3).indices[0, 0] == 99
+    with pytest.raises(NotImplementedError):  # the port's kernels run on every CUDA tensor
+        TIndex(d=8, device="cpu", use_pallas=True)
     with pytest.raises(ValueError):
         TIndex(d=8, metric="cosine", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -92,8 +92,9 @@ def test_quantized_index_small_corpus_and_validation():
         with pytest.raises(ValueError):
             TQIndex(d=40, device="cpu", **bad)
     assert TQIndex(d=40, device="cpu", scan="window").row_pad_multiple == 1024
-    with pytest.raises(NotImplementedError):  # approx stays closed for the base
-        TIndex(d=40, topk_mode="approx", device="cpu")
+    # the base index takes "approx" too, with the JAX index's hits
+    _same(TIndex.from_numpy(x, topk_mode="approx", device="cpu"),
+          JIndex.from_numpy(x, topk_mode="approx"), q, 5)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -177,20 +178,26 @@ def test_engine_http_parity(name, corpus):
         server.server_close()
         thread.join(timeout=10)
     jstats = je.stats()["index"]
+    # the fused rerank runs on every index now (the quantized ones take
+    # their candidates from the store matrix in "approx", as JAX does)
+    jr = je.search_rerank(q, k=5, candidates=100)
+    assert [[h["index"] for h in r] for r in rr["results"]] == [
+        [h["index"] for h in r] for r in jr["results"]]
+    np.testing.assert_allclose(
+        [[h["score"] for h in r] for r in rr["results"]],
+        [[h["score"] for h in r] for r in jr["results"]], rtol=1e-5, atol=1e-6,
+    )
+    assert stats["index"]["effective_topk_modes"] == jstats["effective_topk_modes"]
     if name == "bounded_int8":
-        jr = je.search_rerank(q, k=5, candidates=100)
-        assert [[h["index"] for h in r] for r in rr["results"]] == [
-            [h["index"] for h in r] for r in jr["results"]]
         assert stats["index"]["effective_topk_modes"]["fused_candidates"] == "bounded"
         assert "layout" not in stats["index"]
     else:
-        assert "not ported" in rr["error"] and "ROADMAP" in rr["error"]
         assert stats["index"]["layout"] == jstats["layout"]
         none = te.search_rerank(q, k=5, reranker_type="none")
         assert none["reranker_used"] == "none"
         assert [[h["index"] for h in r] for r in none["results"]] == (
             je.search(q, k=5).indices.tolist())
-        assert te.warmup(batch_sizes=(2,)) > 0  # no fused rerank on this index
+        assert te.warmup(batch_sizes=(2,)) > 0  # the fused rerank warms too
     assert stats["index"]["topk_mode"] == jstats["topk_mode"]
 
 
