@@ -3501,6 +3501,285 @@ class Smoke:
         self._free()
 
 
+    # ------------------------------------------------------------- phase 11
+
+    def multiprocess_path(self):
+        """Phase 11, several processes: (a) NCCL at world size 1 in this
+        process (1 x 1 sharded index, one sharded train step, SP at
+        mp = 1, each against its one-process counterpart); (b) + (e) two
+        gloo ranks on this card over the default corpus (the cross-rank
+        sharded search, then the elastic index losing rank 1); (c) + (d)
+        two gloo ranks training at the shipped widths (dp 2 x mp 1, dp 1
+        x mp 2) and scoring 4,096 tokens sequence-parallel.  Returns the
+        kernel launches of the phase's path runs."""
+        import tempfile
+
+        from qrag_tpu_torch.index.flat_index import _host_sqnorms
+        from qrag_tpu_torch.ops import bounded_topk as bt
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        self._free()
+        self._aside = {}
+        self._all_launches(reset=True)
+        self.nccl_world_one()
+        launches = {("multiprocess", key): v - self._aside.get(key, 0)
+                    for key, v in self._all_launches().items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            index_world = _spawn_world("index", 2, tmp, self.card)
+            try:
+                # the corpus, made once for the ranks while they start,
+                # and the f32 oracle over it
+                x = _unit_rows(1_000_000)
+                np.save(os.path.join(tmp, "corpus.tmp.npy"), x)
+                os.replace(os.path.join(tmp, "corpus.tmp.npy"), os.path.join(tmp, "corpus.npy"))
+                xt = torch.from_numpy(x).to(self.dev)
+                sq = torch.from_numpy(_host_sqnorms(x)).to(self.dev)
+                oracle = {}
+                for (b, k), q in _index_queries().items():
+                    qt = torch.from_numpy(q).to(self.dev)
+                    ov, oi = bt._exact_full_sort(qt, xt, sq, k, "l2", None)
+                    oracle[(b, k)] = (qt, ov, oi)
+            except BaseException:
+                _kill_world(index_world)
+                raise
+            reports = _join_world(index_world, timeout=300)
+            t_index = time.perf_counter() - t0
+            self.check_index_world(reports, oracle, _PairGoodness(xt, sq))
+            del xt, sq, oracle, x
+            self._free()
+            t1 = time.perf_counter()
+            model_reports = _join_world(_spawn_world("model", 2, tmp, self.card), timeout=300)
+            self.check_model_world(model_reports)
+            t_model = time.perf_counter() - t1
+        for rep in reports + model_reports:
+            for key, n in _launches_from_json(rep["launches"]).items():
+                launches[("multiprocess", key)] = launches.get(("multiprocess", key), 0) + n
+        print(f"phase 11 (several processes) [{self.card}]: {time.perf_counter() - t0:.1f} s "
+              f"(index world {t_index:.1f} s with the oracle, model world {t_model:.1f} s); "
+              f"launches {launches}; launches of the comparison paths, booked aside "
+              f"{ {k: v for k, v in self._aside.items() if v} } — two ranks on one card "
+              f"measure the code, not a scale-out", flush=True)
+        return launches
+
+    def nccl_world_one(self):
+        """(a) NCCL at world size 1: the 1 x 1 sharded index (its merge
+        and counters through NCCL collectives of one rank) equal bit for
+        bit to the unsharded index; one sharded train step equal to
+        ``make_trainer``'s; SP at mp = 1 against the dense forward."""
+        import dataclasses
+        import tempfile
+
+        torch = self.torch
+        from qrag_tpu_torch.config import MeshConfig
+        from qrag_tpu_torch.index.flat_index import DeviceFlatIndex
+        from qrag_tpu_torch.models import cross_encoder as ce
+        from qrag_tpu_torch.models.sequence_parallel import forward_sequence_parallel
+        from qrag_tpu_torch.parallel import mesh as pmesh
+        from qrag_tpu_torch.parallel.sharded_index import ShardedFlatIndex
+        from qrag_tpu_torch.parallel.train import make_sharded_trainer, make_trainer, synthetic_batch
+
+        with tempfile.TemporaryDirectory() as tmp:
+            pmesh.distributed_init(f"file://{tmp}/store", 1, 0, backend="nccl")
+            grid = pmesh.make_mesh(MeshConfig(data_parallel=1, model_parallel=1))
+            if not grid.spans_processes or torch.distributed.get_backend() != "nccl":
+                raise AssertionError(f"world one: group {grid.group}")
+            x = _unit_rows(262_144, seed=3)
+            sh = ShardedFlatIndex(x, grid, topk_mode="bounded")
+            un = DeviceFlatIndex.from_numpy(x, topk_mode="bounded", device=self.dev)
+            unit = self._unit(18)
+            for b, k in ((1024, 10), (1, 100)):
+                q = unit(b)
+                for merge in ("allgather", "ring"):
+                    sh.merge = merge
+                    got = sh.search(q, k)
+                    want = self._aside_call(lambda: un.search(q, k))
+                    if not (np.array_equal(got.indices, want.indices)
+                            and np.array_equal(got.scores, want.scores)):
+                        raise AssertionError(f"(a) 1 x 1 sharded {merge} B={b} != unsharded")
+            print(f"(a) NCCL world of one [{self.card}]: 1 x 1 sharded index over {x.shape[0]:,} x 768 "
+                  f"(bounded, both merges, B=1024 k=10 and B=1 k=100) equal bit for bit to the "
+                  f"unsharded index; counters fallback_rows={sh.fallback_rows} "
+                  f"escalations={sh.bounded_escalations} (unsharded {un.fallback_rows}, "
+                  f"{un.bounded_escalations})", flush=True)
+            del sh, un
+            self._free()
+            cfg = ce._load_scorer_config("artifacts/cross_encoder")
+            batch = synthetic_batch(np.random.RandomState(0), 64, cfg.max_len)
+            # the embedding gathers' backward accumulates in a run-to-run
+            # order unless deterministic algorithms are asked for
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            one, _, one_step = make_trainer(cfg, device=self.dev)
+            shd, _, shd_step = make_sharded_trainer(cfg, grid)
+            l1, l2 = one_step(*batch), shd_step(*batch)
+            torch.use_deterministic_algorithms(False)
+            diff = max(float((a - b).detach().abs().max())
+                       for a, b in zip(one.parameters(), shd.parameters()))
+            if not torch.equal(l1, l2) or diff != 0.0:
+                raise AssertionError(f"(a) sharded step: loss {float(l1)} vs {float(l2)}, "
+                                     f"parameters differ by {diff}")
+            sp_cfg = dataclasses.replace(cfg, head_type="cls")
+            net = ce.load_module(ce.CrossEncoder(sp_cfg), ce.init_params(sp_cfg, seed=0))
+            net = net.to(self.dev).eval()
+            toks, mask = ce.tokenize_batch("advert", ["sponsor deal " * 30] * 8, sp_cfg.max_len)
+            with torch.inference_mode():
+                sp = forward_sequence_parallel(net, toks, mask, sp_cfg, grid)
+                dense = net(torch.from_numpy(toks).to(self.dev).long(),
+                            torch.from_numpy(mask).to(self.dev), ce.default_dtype(self.dev))
+            sp_err = float((sp - dense).abs().max())
+            # the CLS row's layer norm runs on a (B, d) slice, not (B, T, d)
+            if sp_err > 1e-5:
+                raise AssertionError(f"(a) SP at mp = 1 differs from the dense forward by {sp_err}")
+            print(f"(a) sharded train step (shipped widths, 64 pairs, bf16) equal bit for bit to "
+                  f"make_trainer's (loss {float(l1):.6f}); SP at mp = 1 (cls head, B=8 T=224) "
+                  f"within {sp_err:.2e} of the dense forward", flush=True)
+            del one, shd, net
+            pmesh.shutdown()
+            self._free()
+
+    def check_index_world(self, reports, oracle, pair_g):
+        """(b) and (e) from the ranks' reports: identity and tie order
+        against the f32 oracle on both ranks, allgather equal to ring,
+        the counters the same sum on both ranks, K1 on every rank's shard;
+        the survivor's eviction and exact answers after it."""
+        torch = self.torch
+        for rep in reports:
+            for line in rep["lines"]:
+                print(f"rank {rep['rank']}: {line}", flush=True)
+        res = [dict(np.load(rep["npz"])) for rep in reports]
+        for (b, k), (qt, ov, oi) in oracle.items():
+            if b == 64:  # the elastic cell, below
+                continue
+            for r, got in enumerate(res):
+                for merge in ("allgather", "ring"):
+                    idx = torch.from_numpy(got[f"{merge}_{b}_idx"]).long().to(self.dev)
+                    dist = torch.from_numpy(got[f"{merge}_{b}_val"]).to(self.dev)
+                    ties = _check_exact(idx, -dist, oi, ov, pair_g.of(qt), atol=1e-4)
+                    err = float((dist + pair_g.of(qt)[_rows_of(idx), idx]).abs().max())
+                    print(f"(b) rank {r} {merge} B={b} k={k}: identity equal to the f32 oracle "
+                          f"(tie reorders {ties}), max |value - oracle| {err:.3e}", flush=True)
+                for key in ("idx", "val"):
+                    if not np.array_equal(got[f"allgather_{b}_{key}"], got[f"ring_{b}_{key}"]):
+                        raise AssertionError(f"(b) rank {r} B={b}: allgather != ring")
+                    if not np.array_equal(got[f"allgather_{b}_{key}"], res[0][f"allgather_{b}_{key}"]):
+                        raise AssertionError(f"(b) B={b}: ranks differ")
+        counters = [rep["counters"] for rep in reports]
+        if counters[0] != counters[1]:
+            raise AssertionError(f"(b) counters differ between ranks: {counters}")
+        for rep in reports:
+            if min(rep["k1_per_search"]) < 1:
+                raise AssertionError(f"(b) rank {rep['rank']}: K1 per search {rep['k1_per_search']}")
+        qt, ov, oi = oracle[(64, 10)]
+        for name, got in (("rank 0 before", res[0]["elastic_before"]),
+                          ("rank 1 before", res[1]["elastic_before"]),
+                          ("survivor after", res[0]["elastic_after"])):
+            if not np.array_equal(got, oi.cpu().numpy()):
+                idx = torch.from_numpy(got).long().to(self.dev)
+                g = pair_g.of(qt)
+                _check_exact(idx, g[_rows_of(idx), idx], oi, ov, g, atol=1e-4)
+        rep0 = reports[0]
+        print(f"(e) elastic over two ranks [{self.card}]: rank 1 left (os._exit); rank 0's group "
+              f"probe {rep0['probe']}, localized {rep0['bad']} (rank 1's slots only), re-sharded "
+              f"over {rep0['survivors']}; B=64 k=10 equal to the f32 oracle before (both ranks) "
+              f"and after; recovery {rep0['recovery_s']:.2f} s (probe {rep0['probe_s']:.2f}, "
+              f"localize {rep0['localize_s']:.2f}, re-shard + search {rep0['reshard_s']:.2f})",
+              flush=True)
+
+    def check_model_world(self, reports):
+        """(c) and (d) from the ranks' reports: every sharded loss within
+        ``BF16_STEP_LOSS_RTOL`` of ``make_trainer``'s on the same batches
+        (whose bf16 step is itself held to the bounds by
+        ``bf16_step_deviation``), the same losses on both ranks, the
+        first step's gradients within ``TRAIN_GRAD_RTOL`` and the
+        parameters after five steps within ``TRAIN_PARAM_RTOL`` of
+        ``make_trainer``'s; SP logits within ``SP_LOGIT_ATOL`` of the
+        dense forward."""
+        from qrag_tpu_torch.models import cross_encoder as ce
+
+        ref = reports[0]["reference"]
+        rel, cos = ref["bf16_deviation"]
+        if rel > ce.BF16_STEP_LOSS_RTOL or cos < ce.BF16_GRAD_COSINE_FLOOR:
+            raise AssertionError(f"(c) make_trainer's bf16 step off its bounds: {rel}, {cos}")
+        arrays = dict(np.load(reports[0]["npz"]))
+        cfg = ce._load_scorer_config("artifacts/cross_encoder")
+        start = ce.init_params(cfg, 0)
+
+        def keyless(name, a):
+            return np.delete(a, np.s_[cfg.dim:2 * cfg.dim]) if name.endswith("attn.qkv.b") else a
+
+        ref_g, ref_p = ({k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)}
+                        for pre in ("ref.grad.", "ref.param."))
+        for layout in ("dp2_mp1", "dp1_mp2"):
+            losses = [rep[layout]["losses"] for rep in reports]
+            if losses[0] != losses[1]:
+                raise AssertionError(f"(c) {layout}: ranks report {losses}")
+            dev = max(abs(a - b) / abs(b) for a, b in zip(losses[0], ref["losses"]))
+            if dev > ce.BF16_STEP_LOSS_RTOL or not np.isfinite(losses[0]).all():
+                raise AssertionError(f"(c) {layout}: losses {losses[0]} vs {ref['losses']}")
+            # Adam's step does not see a gradient's scale, so the losses
+            # alone would pass a gradient counted once per model rank: the
+            # first step's gradients, leaf by leaf, against make_trainer's;
+            # the parameters after 5 steps, each leaf's distance from
+            # make_trainer's over the distance make_trainer moved it (the
+            # key bias left out: its gradient is zero in exact arithmetic,
+            # so Adam walks it along rounding noise)
+            grad_err, grad_leaf = max(
+                (float(np.linalg.norm(arrays[f"{layout}.grad.{n}"] - g)
+                       / max(float(np.linalg.norm(g)), 1e-30)), n) for n, g in ref_g.items())
+            param_err, param_leaf = max(
+                (float(np.linalg.norm(keyless(n, arrays[f"{layout}.param.{n}"] - p))
+                       / max(float(np.linalg.norm(keyless(n, p - start[n]))), 1e-30)), n)
+                for n, p in ref_p.items())
+            param_abs = max(float(np.abs(arrays[f"{layout}.param.{n}"] - p).max())
+                            for n, p in ref_p.items())
+            if not grad_err <= TRAIN_GRAD_RTOL or not param_err <= TRAIN_PARAM_RTOL:
+                raise AssertionError(f"(c) {layout}: first-step gradient off make_trainer's by "
+                                     f"{grad_err} ({grad_leaf}; bound {TRAIN_GRAD_RTOL}), "
+                                     f"parameters after 5 steps by {param_err} of their path "
+                                     f"({param_leaf}; bound {TRAIN_PARAM_RTOL})")
+            print(f"(c) sharded trainer {layout} [{self.card}]: 5 steps of 256 pairs x 224 tokens "
+                  f"(bf16) losses {[round(v, 5) for v in losses[0]]}, make_trainer's "
+                  f"{[round(v, 5) for v in ref['losses']]} (max rel {dev:.2e}, bound "
+                  f"{ce.BF16_STEP_LOSS_RTOL}); first-step gradient, worst leaf |g - g_ref| / "
+                  f"|g_ref| {grad_err:.3e} ({grad_leaf}; bound {TRAIN_GRAD_RTOL}); parameters "
+                  f"after 5 steps, worst leaf |p - p_ref| / |p_ref - p_0| {param_err:.3e} "
+                  f"({param_leaf}; bound {TRAIN_PARAM_RTOL}), max |p - p_ref| {param_abs:.3e}; "
+                  f"ms a step (median of steps 2-5) "
+                  f"{[rep[layout]['ms'] for rep in reports]} vs {ref['ms']:.3f} on one device; "
+                  f"peak MiB per rank {[rep[layout]['peak_mib'] for rep in reports]} vs "
+                  f"{ref['peak_mib']:.1f}", flush=True)
+        sp = [rep["sp"] for rep in reports]
+        if sp[0]["logits"] != sp[1]["logits"]:
+            raise AssertionError("(d) SP logits differ between ranks")
+        dense = np.asarray(reports[0]["dense"]["logits"])
+        got = np.asarray(sp[0]["logits"])
+        logit_err = float(np.abs(got - dense).max())
+        # both forwards run the same operations at the same precision
+        if not logit_err <= SP_LOGIT_ATOL:
+            raise AssertionError(f"(d) SP logits off the dense forward's by {logit_err} "
+                                 f"(bound {SP_LOGIT_ATOL})")
+        print(f"(d) SP cls head, shipped widths, max_len 4096, B=8 T=4096, mp=2 [{self.card}]: "
+              f"logits within {logit_err:.2e} of the dense forward (bound {SP_LOGIT_ATOL}); "
+              f"ms {[s['ms'] for s in sp]} per rank vs "
+              f"{reports[0]['dense']['ms']:.3f} dense on one; peak MiB {[s['peak_mib'] for s in sp]}"
+              f" vs {reports[0]['dense']['peak_mib']:.1f}; gloo all_gather on CUDA tensors: "
+              f"{reports[0]['gloo_cuda_all_gather']}", flush=True)
+
+# Phase 11 (c): how far the sharded trainer (bf16, dp 2 x mp 1 and dp 1 x
+# mp 2) may sit from make_trainer on the same batches.  The first step's
+# gradient, per leaf, relative to make_trainer's (a gradient summed once
+# too often is off by 1 or more); the parameters after five AdamW steps,
+# per leaf, relative to how far make_trainer moved them from the seed's.
+# Readings on an H100 (two runs, the same to the digit): gradients
+# 2.10e-3 at dp 2 and 1.86e-3 at mp 2, parameters 5.95e-3 and 3.21e-2
+# (pos_emb); the bounds leave about 5x and 3x the worst.
+TRAIN_GRAD_RTOL = 1e-2
+TRAIN_PARAM_RTOL = 0.1
+# Phase 11 (d): SP's logits against the dense forward at the same
+# precision.
+SP_LOGIT_ATOL = 1e-3
+
+
 def _check_exact(idx, vals, oi, ov, g, atol):
     """The repo's exactness contract (tests/test_bounded_topk.py
     ``_assert_exact``): identity equals the oracle's except where the
@@ -3679,6 +3958,350 @@ def _check_own(idx, vals, oi, ov, g=None):
         raise AssertionError("own-domain indices differ from full_topk_int8_domain")
 
 
+# ------------------------------------------------------------ phase 11 ranks
+
+
+def _unit_rows(n, seed=0, d=768):
+    """``n`` unit rows of ``default_rng(seed)`` (phase 5's corpus at
+    seed 0), made alike in every process."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x
+
+
+def _index_queries():
+    """{(B, k): unit queries} of phase 11 (b) and (e), alike in every
+    process."""
+    rng = np.random.default_rng(16)
+    out = {}
+    for b, k in ((1024, 10), (1, 100), (64, 10)):
+        q = rng.standard_normal((b, 768), dtype=np.float32)
+        out[(b, k)] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    return out
+
+
+def _rows_of(idx):
+    import torch
+
+    return torch.arange(idx.shape[0], device=idx.device)[:, None].expand_as(idx)
+
+
+class _PairGoodness:
+    """The f32 l2 goodness of (query, row) pairs on demand (``_goodness``'s
+    formula), so that no (B, N) matrix is held: ``of(q)[rows, cols]``."""
+
+    def __init__(self, xt, sq):
+        self.xt, self.sq = xt, sq
+
+    def of(self, qt):
+        xt, sq = self.xt, self.sq
+
+        class _G:
+            def __getitem__(self, key):
+                rows, cols = key
+                q = qt[rows]
+                return 2.0 * (q * xt[cols]).sum(-1) - (q * q).sum(-1) - sq[cols]
+
+        return _G()
+
+
+def _launches_to_json(launches):
+    return {":".join(map(str, key if isinstance(key, tuple) else (key,))): n
+            for key, n in launches.items()}
+
+
+def _launches_from_json(launches):
+    out = {}
+    for key, n in launches.items():
+        parts = key.split(":")
+        if parts[0] == "gather_rows":
+            out["gather_rows"] = n
+        elif parts[0] == "scan_topk":
+            out[("scan_topk", parts[1])] = n
+        else:
+            out[(parts[0], int(parts[1]))] = n
+    return out
+
+
+def _spawn_world(kind, world, tmp, card):
+    """``world`` ranks of this script (``--worker kind``), each with its
+    output in ``tmp``; they join a gloo group through a file store."""
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(tmp, f"{kind}{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", kind, str(r), str(world),
+             tmp, card], stdout=log, stderr=subprocess.STDOUT), log))
+    return kind, tmp, procs
+
+
+def _kill_world(spawned):
+    for p, log in spawned[2]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def _join_world(spawned, timeout):
+    """Wait for every rank within ``timeout`` s (kill them all past it);
+    a rank that exits nonzero fails the phase.  Returns the ranks'
+    reports."""
+    kind, tmp, procs = spawned
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        _kill_world(spawned)
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"{kind}{r}.log")) as f:
+                tail = f.read()[-4000:]
+            raise RuntimeError(f"phase 11 {kind} rank {r} exited {p.returncode}:\n{tail}")
+    reports = []
+    for r in range(len(procs)):
+        with open(os.path.join(tmp, f"{kind}{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _write_report(tmp, kind, rank, report, arrays=None):
+    if arrays is not None:
+        report["npz"] = os.path.join(tmp, f"{kind}{rank}.npz")
+        np.savez(report["npz"], **arrays)
+    with open(os.path.join(tmp, f"{kind}{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def _worker(kind, rank, world, tmp, card):
+    """One rank of phase 11: joins the gloo group of its world on this
+    card and runs its part; its report goes to ``tmp``."""
+    import torch
+
+    from qrag_tpu_torch.parallel import mesh as pmesh
+
+    rank, world = int(rank), int(world)
+    pmesh.distributed_init(f"file://{tmp}/{kind}.store", world, rank, backend="gloo")
+    smoke = Smoke(torch, device=str(pmesh.local_device()), card=card)
+    smoke._all_launches(reset=True)
+    report = {"rank": rank, "lines": []}
+    # the index world leaves with os._exit (its group loses a peer)
+    (_index_rank if kind == "index" else _model_rank)(smoke, rank, tmp, report)
+    pmesh.shutdown()
+    return 0
+
+
+def _index_rank(smoke, rank, tmp, report):
+    """(b) the default corpus (written by the script's process) sharded
+    over the two ranks (bounded, f32 store) inside an elastic index:
+    B=1024 k=10 and B=1 k=100 in both merges, timed; then (e) rank 1
+    leaves, rank 0 probes, localizes, re-shards and answers."""
+    torch = smoke.torch
+    from qrag_tpu_torch.ops.cuda import fused_scan
+    from qrag_tpu_torch.parallel.elastic import ElasticShardedIndex
+
+    path = os.path.join(tmp, "corpus.npy")
+    deadline = time.monotonic() + 120
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no corpus at {path}")
+        time.sleep(0.1)
+    t0 = time.perf_counter()
+    x = np.load(path)
+    el = ElasticShardedIndex(x, probe_timeout_s=20.0, topk_mode="bounded")
+    sh = el.index
+    if not (sh.mesh.spans_processes and sh.mesh.shape == {"data": 1, "model": 2}):
+        raise AssertionError(f"(b) mesh {sh.mesh}")
+    sh.search(x[:1], k=10)
+    torch.cuda.synchronize()
+    report["lines"].append(
+        f"(b) {x.shape[0]:,} x 768 over a 1 x 2 mesh of ranks on {smoke.dev} (gloo), "
+        f"{sh.layout()['rows_per_shard']:,} rows a shard (capacity with headroom); setup "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    arrays, k1s, report["ms"] = {}, [], {}
+    queries = _index_queries()
+    for (b, k), q in queries.items():
+        if b == 64:
+            continue
+        for merge in ("allgather", "ring"):
+            sh.merge = merge
+            k1 = sum(fused_scan.launches.values())
+            fb0, esc0 = sh.fallback_rows, sh.bounded_escalations
+            res = sh.search(q, k)
+            k1s.append(sum(fused_scan.launches.values()) - k1)
+            arrays[f"{merge}_{b}_idx"], arrays[f"{merge}_{b}_val"] = res.indices, res.scores
+            ms = smoke._events_ms(lambda: sh.search(q, k), 3 if b > 1 else 10)
+            report["ms"][f"{merge}_{b}"] = ms
+            report["lines"].append(
+                f"(b) {merge} B={b} k={k}: {ms:.3f} ms a search (events); K1 launches "
+                f"{k1s[-1]} on this rank; counters summed over the ranks +{sh.fallback_rows - fb0} "
+                f"fallbacks, +{sh.bounded_escalations - esc0} escalations")
+    report["counters"] = [sh.fallback_rows, sh.bounded_escalations]
+    report["k1_per_search"] = k1s
+    sh.merge = "allgather"
+    del sh
+    q64 = queries[(64, 10)]
+    arrays["elastic_before"] = el.search(q64, k=10).indices
+    report["launches"] = _launches_to_json(smoke._all_launches())
+    if rank == 1:
+        _write_report(tmp, "index", rank, report, arrays)
+        os._exit(0)  # leave without shutting the group down
+    time.sleep(1.5)
+    t1 = time.perf_counter()
+    healthy = el.probe()
+    t2 = time.perf_counter()
+    bad = el.localize_failures()
+    t3 = time.perf_counter()
+    if healthy or [(s.id, s.rank) for s in bad] != [(1, 1)]:
+        raise AssertionError(f"(e) probe {healthy}, localized {bad}")
+    el.remove_devices(bad)
+    arrays["elastic_after"] = el.search(q64, k=10).indices
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    if el.rebuilds != 1 or el.mesh.spans_processes or el.index.ntotal != x.shape[0]:
+        raise AssertionError(f"(e) after the eviction: {el.layout()}")
+    report.update(probe=healthy, bad=[list(s[:1]) + [str(s.device), s.rank] for s in bad],
+                  survivors=[[s.id, str(s.device), s.rank] for s in el.devices],
+                  recovery_s=t4 - t1, probe_s=t2 - t1, localize_s=t3 - t2, reshard_s=t4 - t3,
+                  launches=_launches_to_json(smoke._all_launches()))
+    _write_report(tmp, "index", rank, report, arrays)
+    os._exit(0)  # the group lost a peer: no teardown
+
+
+def _long_batch(cfg, b=8):
+    """B byte sequences of ``cfg.max_len`` tokens behind a CLS, row i
+    padded over its last 300 i tokens."""
+    from qrag_tpu_torch.models import cross_encoder as ce
+
+    rng = np.random.default_rng(5)
+    t = cfg.max_len
+    toks = rng.integers(0, 256, (b, t)).astype(np.int32)
+    toks[:, 0] = ce.CLS_ID
+    mask = np.ones((b, t), np.float32)
+    for i in range(b):
+        if i:
+            toks[i, t - 300 * i:] = ce.PAD_ID
+            mask[i, t - 300 * i:] = 0.0
+    return toks, mask
+
+
+def _model_rank(smoke, rank, tmp, report):
+    """(c) the sharded trainer at the shipped widths, dp 2 x mp 1 and
+    dp 1 x mp 2, five steps of 256 synthetic pairs each, with
+    ``make_trainer``'s run on rank 0 beside it; (d) SP at 4,096 tokens,
+    mp = 2, with the dense forward on rank 0 beside it."""
+    import dataclasses
+    import statistics
+
+    torch = smoke.torch
+    import torch.distributed as dist
+
+    from qrag_tpu_torch.config import MeshConfig
+    from qrag_tpu_torch.models import cross_encoder as ce
+    from qrag_tpu_torch.models.sequence_parallel import forward_sequence_parallel
+    from qrag_tpu_torch.models.weights import param_paths
+    from qrag_tpu_torch.parallel import mesh as pmesh
+    from qrag_tpu_torch.parallel import train
+    from qrag_tpu_torch.parallel.train import make_sharded_trainer, make_trainer, synthetic_batch
+
+    cfg = ce._load_scorer_config("artifacts/cross_encoder")
+    rng = np.random.RandomState(0)
+    batches = [synthetic_batch(rng, 256, cfg.max_len) for _ in range(5)]
+    names = param_paths(cfg)
+    arrays = {}
+
+    def whole(model, leaves):
+        """{name: full array} of a trainer's leaves (blocks gathered over
+        "model" for a sharded one: every rank calls it)."""
+        if hasattr(model, "model_axis"):
+            return train._gathered(model, cfg, leaves)
+        return {m: t.detach().cpu().numpy() for m, t in leaves.items()}
+
+    def run(step, model, tag):
+        """Five steps; the first step's gradients and the parameters
+        after the last, whole (gathered over "model": every rank calls
+        it), into ``arrays`` under ``tag`` on rank 0."""
+        losses, ms = [], []
+        for n, b in enumerate(batches):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss = step(*b)
+            e1.record()
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            ms.append(e0.elapsed_time(e1))
+            if n == 0:
+                grads = whole(model, {m: model.get_parameter(m).grad for m in names})
+        params = whole(model, {m: model.get_parameter(m) for m in names})
+        if rank == 0:
+            arrays.update({f"{tag}.grad.{m}": g for m, g in grads.items()})
+            arrays.update({f"{tag}.param.{m}": p for m, p in params.items()})
+        return losses, round(statistics.median(ms[1:]), 3)
+
+    def peak_mib():
+        torch.cuda.synchronize()
+        return round(torch.cuda.max_memory_allocated() / 2**20, 1)
+
+    for dp, mp in ((2, 1), (1, 2)):
+        smoke._free()
+        torch.cuda.reset_peak_memory_stats()
+        grid = pmesh.make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp))
+        model, _, step = make_sharded_trainer(cfg, grid)
+        losses, ms = run(step, model, f"dp{dp}_mp{mp}")
+        report[f"dp{dp}_mp{mp}"] = {"losses": losses, "ms": ms, "peak_mib": peak_mib()}
+        del model, step
+    if rank == 0:
+        smoke._free()
+        torch.cuda.reset_peak_memory_stats()
+        model, _, step = make_trainer(cfg, device=smoke.dev)
+        losses, ms = run(step, model, "ref")
+        ref = {"losses": losses, "ms": ms, "peak_mib": peak_mib()}
+        del model, step
+
+        def build():
+            return ce.trainable(ce.load_module(ce.CrossEncoder(cfg), ce.init_params(cfg, 0)),
+                                smoke.dev)
+
+        def loss_of(model, dtype):
+            return ce.bce_loss(model, *ce.device_batch(smoke.dev, *batches[0]), dtype)
+
+        ref["bf16_deviation"] = ce.bf16_step_deviation(build, loss_of)
+        report["reference"] = ref
+    smoke._free()
+    sp_cfg = dataclasses.replace(cfg, head_type="cls", max_len=4096)
+    net = ce.load_module(ce.CrossEncoder(sp_cfg), ce.init_params(sp_cfg, seed=0))
+    net = net.to(smoke.dev).eval()
+    toks, mask = _long_batch(sp_cfg)
+    grid = pmesh.make_mesh(MeshConfig(data_parallel=1, model_parallel=2))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        logits = forward_sequence_parallel(net, toks, mask, sp_cfg, grid)
+        ms = smoke._events_ms(lambda: forward_sequence_parallel(net, toks, mask, sp_cfg, grid), 3)
+        report["sp"] = {"logits": logits.cpu().tolist(), "ms": round(ms, 3),
+                        "peak_mib": peak_mib()}
+        if rank == 0:
+            smoke._free()
+            torch.cuda.reset_peak_memory_stats()
+            tt = torch.from_numpy(toks).to(smoke.dev).long()
+            mt = torch.from_numpy(mask).to(smoke.dev)
+            dense = net(tt, mt, ce.default_dtype(smoke.dev))
+            ms = smoke._events_ms(lambda: net(tt, mt, ce.default_dtype(smoke.dev)), 3)
+            report["dense"] = {"logits": dense.cpu().tolist(), "ms": round(ms, 3),
+                               "peak_mib": peak_mib()}
+    # whether gloo gathers device tensors (collectives.py stages them
+    # through the host either way)
+    t = torch.ones(4, device=smoke.dev)
+    try:
+        dist.all_gather([torch.empty_like(t) for _ in range(2)], t)
+        report["gloo_cuda_all_gather"] = "accepted"
+    except (RuntimeError, ValueError) as e:
+        report["gloo_cuda_all_gather"] = f"refused ({str(e).splitlines()[0][:120]})"
+    report["launches"] = _launches_to_json(smoke._all_launches())
+    _write_report(tmp, "model", rank, report, arrays if rank == 0 else None)
+
 # (domain, planes) -> the Pallas kernels of qrag_tpu/ops/pallas/fused_scan.py
 # that the instance replaces
 KERNELS = {
@@ -3696,6 +4319,8 @@ KERNELS = {
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--worker"]:  # one rank of phase 11
+        return _worker(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU",
               file=sys.stderr)
@@ -3722,6 +4347,7 @@ def main() -> int:
     smoke.train_path()
     launches.update(smoke.accel_quantum_path())
     launches.update(smoke.modes_sharded_path())
+    launches.update(smoke.multiprocess_path())
     kernels = []
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]
@@ -3736,6 +4362,7 @@ def main() -> int:
             "launches_accel_path": launches.get(("accel", key), 0),
             "launches_quantum_path": launches.get(("quantum", key), 0),
             "launches_sharded_path": launches.get(("sharded", key), 0),
+            "launches_multiprocess_path": launches.get(("multiprocess", key), 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -3766,6 +4393,7 @@ def main() -> int:
         "launches_accel_path": launches[("accel", "gather_rows")],
         "launches_quantum_path": launches[("quantum", "gather_rows")],
         "launches_sharded_path": launches[("sharded", "gather_rows")],
+        "launches_multiprocess_path": launches[("multiprocess", "gather_rows")],
         **{key: row[key] for key in gather_keys},
         "other_shapes": {
             f"M={m}": {key: smoke.kernel_rows[("gather_rows", m)][key] for key in gather_keys}
@@ -3787,6 +4415,7 @@ def main() -> int:
                 "launches_quantum_path": launches[("quantum", ("scan_topk", arm))],
                 "launches_modes_path": launches[("modes", ("scan_topk", arm))],
                 "launches_sharded_path": launches[("sharded", ("scan_topk", arm))],
+                "launches_multiprocess_path": launches[("multiprocess", ("scan_topk", arm))],
                 **{key: row[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_composite_ms", "library_composite_device_ms",

@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,7 @@ from qrag_tpu_torch.models.cross_encoder import (
     load_module,
     module_params,
 )
+from qrag_tpu_torch.models.cross_encoder import partition_spec as _tower_partition_spec
 from qrag_tpu_torch.models.weights import params_from_npz, params_to_npz
 
 
@@ -63,6 +64,15 @@ class BiEncoderConfig:
     )
     out_dim: int = 256
     temperature: float = 20.0  # the training loss's logit scale
+
+
+def partition_spec(cfg: BiEncoderConfig) -> Dict[str, Any]:
+    """The reference's tree (``cross_encoder.partition_spec`` of the
+    tower, without ``head``, with a replicated ``proj``)."""
+    spec = _tower_partition_spec(cfg.tower)
+    del spec["head"]
+    spec["proj"] = {"w": (), "b": ()}
+    return spec
 
 
 def tokenize_texts(

@@ -31,8 +31,8 @@ in the ``.npz`` order, which ``weights.adam_state_from_optax`` and
 ``models/checkpoint.py`` rely on.  ``remat=True`` recomputes each block
 of the "cls" path in the backward pass (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` does there); the interaction head, like the
-reference's, never reads it.  The sharding rules are not ported
-(ROADMAP.md, Queue 1 item 8).
+reference's, never reads it.  ``partition_spec`` gives the sharding
+rules that ``parallel/train.py`` places the parameters by.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import json
 import math
 import os
 from dataclasses import asdict, dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -376,6 +376,57 @@ def device_batch(device: torch.device, tokens: np.ndarray, *floats: np.ndarray):
     """Token ids (as int64) and f32 arrays on ``device``."""
     return (torch.from_numpy(tokens).to(device).long(),
             *(torch.from_numpy(np.asarray(a, np.float32)).to(device) for a in floats))
+
+
+# ----------------------------------------------------------------- sharding
+
+
+def partition_spec(cfg: CrossEncoderConfig) -> Dict[str, Any]:
+    """The reference's ``partition_spec`` tree: the parameter tree's
+    keys, each leaf a tuple naming per axis the mesh axis it is split
+    over (``"model"``) or None — the reference's ``PartitionSpec`` as a
+    plain tuple (``P()`` is ``()``).  TP: attention qkv / out and the
+    FFN hidden on "model"; EP: the experts' leading axis on "model".
+
+    One placement differs from the reference's under the same spec.
+    GSPMD splits the fused ``qkv.w`` (dim, 3·dim) into contiguous column
+    blocks; ``parallel/train.shard_params`` splits q, k and v each by
+    heads, so that a rank's block holds whole heads of all three and
+    attention stays local to the rank.  The shard's shape is the same,
+    (dim, 3·dim/mp); its columns are other ones."""
+    layer_spec: Dict[str, Any] = {
+        "ln1": {"g": (), "b": ()},
+        "ln2": {"g": (), "b": ()},
+        "attn": {
+            "qkv": {"w": (None, "model"), "b": ("model",)},
+            "out": {"w": ("model", None), "b": ()},
+        },
+    }
+    if cfg.head_type == "interaction":
+        layer_spec["xgate"] = ()
+    if cfg.n_experts > 0:
+        layer_spec["moe"] = {
+            "router": {"w": (), "b": ()},
+            "w1": ("model", None, None),
+            "b1": ("model", None),
+            "w2": ("model", None, None),
+            "b2": ("model", None),
+        }
+    else:
+        layer_spec["mlp"] = {
+            "w1": {"w": (None, "model"), "b": ("model",)},
+            "w2": {"w": ("model", None), "b": ()},
+        }
+    spec: Dict[str, Any] = {
+        "tok_emb": (),
+        "pos_emb": (),
+        "final_ln": {"g": (), "b": ()},
+        "head": {"w": (), "b": ()},
+        "layers": [layer_spec] * cfg.n_layers,
+    }
+    if cfg.head_type == "interaction":
+        spec["iproj"] = {"w": (), "b": ()}
+    return spec
 
 
 # ----------------------------------------------------------------- training

@@ -7,15 +7,22 @@ loads them (``model_cache_dir/<model_name>/params.npz`` + config.json,
 the JAX package's format) and a resumable checkpoint at ``<out>.ckpt``
 (``models/checkpoint.py``: npz, not orbax).  Data: JSONL of
 ``{"query": ..., "doc": ..., "label": 0|1}`` via --data, or the
-synthetic relevance task.  Training runs on one device, ``--device
-cuda`` unless ``--device cpu`` is given; the reference's mesh comes
-with ROADMAP.md Queue 1 item 8.
+synthetic relevance task.  It trains DP x TP/EP over a data x model
+mesh, as the reference does: model = gcd(processes, experts or heads),
+data = the rest; one process is a 1 x 1 mesh on ``--device`` (``cuda``
+unless ``cpu`` is given).  Several processes come from ``torchrun``
+(``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR``, read by
+``distributed_init("env://")``: NCCL on CUDA, gloo on the CPU).  Rank 0
+gathers the sharded parameters and Adam state and alone writes the
+weights and the checkpoint, in the one-device formats.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import time
 from typing import Iterator, List, Tuple
 
@@ -67,14 +74,8 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    from qrag_tpu_torch.models.checkpoint import load_train_state, save_train_state
-    from qrag_tpu_torch.models.cross_encoder import (
-        CrossEncoderConfig,
-        CrossEncoderScorer,
-        default_dtype,
-        module_params,
-    )
-    from qrag_tpu_torch.parallel.train import make_trainer, synthetic_batch
+    from qrag_tpu_torch.models.cross_encoder import CrossEncoderConfig
+    from qrag_tpu_torch.parallel.mesh import process_index, shutdown
 
     cfg = CrossEncoderConfig(
         dim=args.dim,
@@ -83,16 +84,8 @@ def main(argv=None) -> None:
         n_experts=args.experts,
         max_len=args.max_len,
     )
-    model, optimizer, step_fn = make_trainer(
-        cfg, learning_rate=args.lr, seed=args.seed, device=args.device, remat=args.remat
-    )
-    device = model.tok_emb.device
-    dtype = default_dtype(device)
-    print(f"device: {device} (single device)")
-    start_step = 0
-    if args.resume:
-        start_step, _ = load_train_state(args.resume, model, optimizer, cfg)
-        print(f"resumed from {args.resume} at step {start_step}")
+    model, optimizer, step_fn, start_step = _trainer(cfg, args)
+    lead = process_index() == 0
 
     rng = np.random.RandomState(args.seed)
     data_iter = (
@@ -100,6 +93,8 @@ def main(argv=None) -> None:
         if args.data
         else None
     )
+    from qrag_tpu_torch.parallel.train import synthetic_batch
+
     t0 = time.time()
     loss = float("nan")
     for step in range(start_step, start_step + args.steps):
@@ -108,23 +103,103 @@ def main(argv=None) -> None:
         else:
             toks, masks, labels = synthetic_batch(rng, args.batch, cfg.max_len)
         loss = step_fn(toks, masks, labels)
-        if (step + 1) % 20 == 0 or step == start_step:
+        if lead and ((step + 1) % 20 == 0 or step == start_step):
             print(
                 f"step {step + 1}: loss {float(loss):.4f} "
                 f"({(time.time() - t0):.1f}s)"
             )
 
     final_step = start_step + args.steps
-    # inference weights where ClassicalReranker's cross-encoder method
-    # looks for them
-    scorer = CrossEncoderScorer(cfg, params=module_params(model), device=device)
-    scorer.save(args.out)
-    # resumable training state
-    save_train_state(args.out + ".ckpt", model, optimizer, final_step, cfg, dtype, args.remat)
-    print(
-        f"trained to step {final_step} (loss {float(loss):.4f}); "
-        f"weights -> {args.out}, checkpoint -> {args.out}.ckpt"
+    _save(cfg, args, model, optimizer, final_step, lead)
+    if lead:
+        print(
+            f"trained to step {final_step} (loss {float(loss):.4f}); "
+            f"weights -> {args.out}, checkpoint -> {args.out}.ckpt"
+        )
+    shutdown()
+
+
+def _trainer(cfg, args):
+    """(model, optimizer, step_fn, start step) of this rank, DP x TP/EP
+    over every process (the reference's mesh rule; 1 x 1 in one
+    process)."""
+    from qrag_tpu_torch.config import MeshConfig
+    from qrag_tpu_torch.parallel.mesh import distributed_init, make_mesh, process_index
+    from qrag_tpu_torch.parallel.train import load_sharded_state, make_sharded_trainer
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        distributed_init("env://", device=args.device)
+    # the model axis must divide the sharded dims (experts, or attention
+    # heads / FFN hidden); the rest goes on "data"
+    mp = math.gcd(world, args.experts if args.experts > 0 else args.heads)
+    mesh = make_mesh(MeshConfig(data_parallel=world // mp, model_parallel=mp), device=args.device)
+    model, optimizer, step_fn = make_sharded_trainer(
+        cfg, mesh, learning_rate=args.lr, seed=args.seed, remat=args.remat
     )
+    lead = process_index() == 0
+    if lead:
+        where = " (single device)" if world == 1 else ""
+        print(f"mesh: data={world // mp} x model={mp} over {world} processes; "
+              f"device: {model.tok_emb.device}{where}")
+    start_step = 0
+    if args.resume:
+        start_step, params, mu, nu, count = _read_state(args.resume, cfg)
+        load_sharded_state(model, optimizer, cfg, mesh, params, mu, nu, count)
+        if lead:
+            print(f"resumed from {args.resume} at step {start_step}")
+    return model, optimizer, step_fn, start_step
+
+
+def _full_trainer(cfg, lr):
+    """A full model and AdamW on the host (the checkpoint's form)."""
+    import torch
+
+    from qrag_tpu_torch.models import cross_encoder as ce
+    from qrag_tpu_torch.models.weights import ordered_parameters
+
+    model = ce.trainable(ce.CrossEncoder(cfg), "cpu")
+    optimizer = torch.optim.AdamW(ordered_parameters(model, cfg), lr=lr,
+                                  weight_decay=ce.ADAMW_DECAY)
+    return model, optimizer
+
+
+def _read_state(path, cfg):
+    """A checkpoint as full arrays: (step, params, mu, nu, count)."""
+    from qrag_tpu_torch.models.checkpoint import load_train_state
+    from qrag_tpu_torch.models.cross_encoder import module_params
+    from qrag_tpu_torch.models.weights import param_paths
+
+    model, optimizer = _full_trainer(cfg, 0.0)
+    step, _ = load_train_state(path, model, optimizer, cfg)
+    state = optimizer.state_dict()["state"]
+    names = param_paths(cfg)
+    mu = {n: state[k]["exp_avg"].numpy() for k, n in enumerate(names)}
+    nu = {n: state[k]["exp_avg_sq"].numpy() for k, n in enumerate(names)}
+    return step, module_params(model), mu, nu, int(state[0]["step"])
+
+
+def _save(cfg, args, model, optimizer, step, lead):
+    """Every rank gathers its blocks (a collective over "model"); rank 0
+    writes the full state: the inference weights where
+    ``ClassicalReranker``'s cross-encoder method looks for them, and the
+    resumable checkpoint."""
+    from qrag_tpu_torch.models.checkpoint import save_train_state
+    from qrag_tpu_torch.models.cross_encoder import CrossEncoderScorer, default_dtype, load_module
+    from qrag_tpu_torch.models.weights import adam_state, load_adam_state, param_paths
+    from qrag_tpu_torch.parallel.train import gather_train_state
+
+    params, mu, nu, count = gather_train_state(model, optimizer, cfg)
+    if not lead:
+        return
+    full, opt = _full_trainer(cfg, args.lr)
+    load_module(full, params)
+    names = param_paths(cfg)
+    if count:
+        load_adam_state(opt, adam_state([mu[n] for n in names], [nu[n] for n in names], count))
+    CrossEncoderScorer(cfg, params=params, device="cpu").save(args.out)
+    save_train_state(args.out + ".ckpt", full, opt, step, cfg, default_dtype(model.tok_emb.device),
+                     args.remat)
 
 
 if __name__ == "__main__":

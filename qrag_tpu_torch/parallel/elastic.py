@@ -10,12 +10,25 @@ rebuild.  A failure with a healthy mesh is transient: the call is
 retried without eviction, and only a repeated one drops a slot as a
 last resort.
 
-Failures are addressed by mesh SLOT (``Slot``: a number and a
-``torch.device``), where the reference addresses a ``jax.Device``: one
-device may fill several slots here (the CPU tests put 8 on ``cpu``),
-and a slot is what holds a shard.  The test hooks
-(``inject_search_failure``, ``inject_device_failure``,
+Failures are addressed by mesh SLOT (``Slot``: a number, a
+``torch.device`` and the rank that owns it), where the reference
+addresses a ``jax.Device``: one device may fill several slots here (the
+CPU tests put 8 on ``cpu``), and a slot is what holds a shard.  The
+test hooks (``inject_search_failure``, ``inject_device_failure``,
 ``inject_device_hang``) take slots.
+
+Across processes (after ``mesh.distributed_init``) the index starts on
+every rank's slots.  ``probe`` is a deadlined all-reduce over the
+group; ``probe_device`` pings a slot of this rank as in one process,
+and another rank's slot through that rank's heartbeat in the rendezvous
+store (``mesh.peers_alive``; ``localize_failures`` reads every other
+rank's heartbeat once, over one wait), so it names exactly the slots of
+a dead rank.  Once a rank evicts anything from a mesh that
+spans processes, it re-shards over its OWN surviving slots alone, from
+the host master: each live rank then serves the whole corpus with no
+collective over the broken group, whose teardown
+(``destroy_process_group``) could wait on the dead peer and is never
+called on this path.
 """
 
 from __future__ import annotations
@@ -28,18 +41,29 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from qrag_tpu_torch.config import MeshConfig
-from qrag_tpu_torch.parallel.mesh import make_mesh, mesh_devices
+from qrag_tpu_torch.parallel import collectives
+from qrag_tpu_torch.parallel.mesh import (
+    local_device,
+    make_mesh,
+    mesh_devices,
+    peers_alive,
+    process_index,
+)
 from qrag_tpu_torch.parallel.sharded_index import ShardedFlatIndex
 
 logger = logging.getLogger(__name__)
 
 
 class Slot(NamedTuple):
-    """One mesh slot: its number and the device that holds it."""
+    """One mesh slot: its number, the device that holds it and the rank
+    that owns it."""
 
     id: int
     device: torch.device
+    rank: int = 0
 
 
 def _put(x: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -104,11 +128,18 @@ class ElasticShardedIndex:
         self.probe_timeout_s = probe_timeout_s
         if devices is None:
             # one slot per slot of the configured grid (1 x S: re-sharding
-            # shrinks the model axis)
+            # shrinks the model axis); after distributed_init, every
+            # rank's slots in rank order
             cfg = mesh_config or MeshConfig()
             dp, mp = cfg.data_parallel, cfg.model_parallel
-            devs = mesh_devices(device, dp * mp if dp > 0 and mp > 0 else 0)
-            devices = [Slot(i, d) for i, d in enumerate(devs)]
+            slots = dp * mp if dp > 0 and mp > 0 else 0
+            if local_device() is not None:
+                grid = make_mesh(MeshConfig(data_parallel=1, model_parallel=slots or -1),
+                                 device=device)
+                devices = [Slot(s, grid.devices.flat[s], grid.rank(0, s))
+                           for s in range(grid.devices.size)]
+            else:
+                devices = [Slot(i, d) for i, d in enumerate(mesh_devices(device, slots))]
         self.devices: List[Slot] = list(devices)
         self.probe_cache_ttl_s = probe_cache_ttl_s
         self._failure_injector: Optional[Callable[[], None]] = None
@@ -133,9 +164,12 @@ class ElasticShardedIndex:
     # ------------------------------------------------------------ lifecycle
 
     def _build(self, slots: Sequence[Slot]) -> None:
+        spans = len({s.rank for s in slots}) > 1
         self.mesh = make_mesh(
             MeshConfig(data_parallel=1, model_parallel=len(slots)),
             devices=[s.device for s in slots],
+            ranks=[s.rank for s in slots],
+            group=dist.group.WORLD if spans else None,
         )
         self.index = ShardedFlatIndex(
             self._vectors if self._vectors.shape[0] else None,
@@ -216,15 +250,19 @@ class ElasticShardedIndex:
         return ok, value
 
     def probe(self) -> bool:
-        """Whole-mesh health check (the fast path): a one on every slot,
-        summed on the lead slot, under the deadline."""
+        """Whole-mesh health check (the fast path): a one on every slot
+        of this rank, summed on its lead slot, then all-reduced over the
+        group (a rank's group that lost a peer raises or hangs: either
+        way unhealthy), under the deadline."""
 
         def _ping() -> float:
             if self._injected_bad & set(self.devices):
                 raise RuntimeError("injected slot failure in mesh")
-            lead = self.devices[0].device
-            ones = [_put(torch.ones((1,)), s.device) for s in self.devices]
-            return float(sum(t.to(lead) for t in ones).item())
+            local = [s for s in self.devices if s.rank == process_index()]
+            lead = local[0].device
+            ones = [_put(torch.ones((1,)), s.device) for s in local]
+            total = sum(t.to(lead) for t in ones)
+            return float(collectives.all_reduce(self.mesh, total).item())
 
         ok, value = self._probe_with_deadline("mesh", _ping)
         if not ok:
@@ -232,10 +270,13 @@ class ElasticShardedIndex:
             return False
         return value == len(self.devices)
 
-    def probe_device(self, slot: Slot) -> bool:
-        """Per-slot health probe: a tiny host -> device transfer and a
-        reduction on the slot's device, under the same deadline.
-        Unhealthy verdicts are cached for ``probe_cache_ttl_s``."""
+    def probe_device(self, slot: Slot, _alive: Optional[dict] = None) -> bool:
+        """Per-slot health probe under the same deadline: for a slot of
+        this rank a tiny host -> device transfer and a reduction on its
+        device; for another rank's slot, whether that rank's heartbeat
+        still moves (``_alive``: {rank: verdict} already read by
+        ``localize_failures``).  Unhealthy verdicts are cached for
+        ``probe_cache_ttl_s``."""
         cached = self._probe_verdicts.get(slot)
         if cached is not None:
             verdict, ts = cached
@@ -249,6 +290,11 @@ class ElasticShardedIndex:
             hang = self._injected_hangs.get(slot)
             if hang:
                 time.sleep(hang)
+            if slot.rank != process_index():
+                alive = _alive if _alive is not None else peers_alive([slot.rank])
+                if not alive[slot.rank]:
+                    raise RuntimeError(f"rank {slot.rank}'s heartbeat stopped")
+                return 8.0
             x = _put(torch.ones((8,), dtype=torch.float32), slot.device)
             return float(torch.sum(x).item())
 
@@ -260,15 +306,30 @@ class ElasticShardedIndex:
         return value == 8.0
 
     def localize_failures(self) -> List[Slot]:
-        """Probe every slot on its own; return the unhealthy ones."""
-        return [s for s in self.devices if not self.probe_device(s)]
+        """Probe every slot on its own; return the unhealthy ones.  The
+        other ranks' heartbeats are read once for all their slots (one
+        wait, under the deadline; a store that cannot be read fails
+        them all)."""
+        me = process_index()
+        remote = sorted({s.rank for s in self.devices if s.rank != me})
+        alive = {}
+        if remote:
+            ok, value = self._probe_with_deadline(("peers", tuple(remote)),
+                                                  lambda: peers_alive(remote))
+            if not ok:
+                logger.warning("heartbeat read failed: %s", value)
+            alive = value if ok else dict.fromkeys(remote, False)
+        return [s for s in self.devices if not self.probe_device(s, alive)]
 
     # ------------------------------------------------------------- recovery
 
     def remove_devices(self, bad: Sequence[Slot]) -> None:
-        """Drop slots and re-shard over the survivors."""
+        """Drop slots and re-shard over the survivors: on a mesh that
+        spans processes, over this rank's surviving slots alone."""
         bad_set = set(bad)
         survivors = [s for s in self.devices if s not in bad_set]
+        if self.mesh.spans_processes:
+            survivors = [s for s in survivors if s.rank == process_index()]
         if not survivors:
             raise RuntimeError("no healthy devices left")
         self.devices = survivors

@@ -5,8 +5,14 @@ The (N, d) matrix is split by rows into S equal blocks, one per model
 slot (replicated over the data axis); each slot scans its block with
 the single-device selection of the index's ``topk_mode``, then the
 per-shard (B, k) candidates merge exactly — k·S candidates per query,
-no full-score exchange.  Queries split over the data axis.  One process
-drives every slot in turn, as the reference's single controller does.
+no full-score exchange.  Queries split over the data axis.  A process
+drives its own slots in turn, as the reference's controller does its
+addressable devices; on a mesh that spans processes (after
+``mesh.distributed_init``) every rank builds from the same full host
+corpus, as the reference's processes do, uploads only its own slots'
+rows, and reaches the other ranks' slots through ``collectives.py``.
+Every rank gets the whole (B, k) result, as the reference's replicated
+output.
 
 Per shard:
 
@@ -21,11 +27,14 @@ Per shard:
     fails.
   * "exact" / "approx": ``ops.topk``'s sort / candidate selection.
 
-Merges (``merge``): "allgather" moves every shard's candidates to the
-lead slot and keeps the k best of the shard-major concatenation by a
-stable sort; "ring" runs S-1 rounds in which each slot folds its
-neighbour's travelling set into its own, ordering by (value desc, index
-asc) with two stable sorts (the reference's ``lexsort``).  Every shard's
+Merges (``merge``): "allgather" gathers every shard's candidates to
+each rank (``collectives.all_gather``) and keeps the k best of the
+shard-major concatenation by a stable sort; "ring" runs S-1 rounds in
+which each slot folds its neighbour's travelling set into its own
+(``collectives.ring_shift``: send to the next slot, receive from the
+previous), ordering by (value desc, index asc) with two stable sorts
+(the reference's ``lexsort``); a rank that holds no slot of a data row
+receives the row's result by broadcast.  Every shard's
 candidates are exact with ties to the lower index, and global ids grow
 with the shard, so both merges give the single-device exact answer,
 tie order included, and equal each other bit for bit.
@@ -34,6 +43,13 @@ tie order included, and equal each other bit for bit.
 (``ops.cluster_topk``) and merges its exact per-shard answers the same
 way.  Candidate slots that hold no row carry -inf and the row id
 ``_PAD_IDX`` (past every shard), which the host edge maps to -1.
+
+The counters (``fallback_rows``, ``bounded_escalations``, the
+accelerator's) are summed over every slot of every rank, and the
+cross-shard row gather is a masked local take plus one all-reduce (the
+reference's ``psum``).  Across processes the index keeps its host
+master: the streaming mode (``keep_host_master=False``) grows and
+checkpoints the corpus slot to slot, which only one process can do.
 """
 
 from __future__ import annotations
@@ -67,11 +83,11 @@ from qrag_tpu_torch.ops.topk import (
     _verified_topk,
     top_k,
 )
+from qrag_tpu_torch.parallel import collectives
 from qrag_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
-    batch_sharded,
     make_mesh,
     row_sharded,
 )
@@ -162,7 +178,12 @@ class ShardedFlatIndex:
         if store_dtype not in _DTYPES:
             raise ValueError(f"unknown store_dtype {store_dtype!r}")
         self.mesh = mesh if mesh is not None else make_mesh(mesh_config, device=device)
-        self.device = self.mesh.device(0, 0)  # the lead slot's
+        local = self.mesh.local_slots()
+        if not local:
+            raise ValueError("this rank holds no slot of the mesh")
+        if self.mesh.spans_processes and not keep_host_master:
+            raise ValueError("an index over several processes keeps its host master")
+        self.device = self.mesh.device(*local[0])  # the lead local slot's
         self.small_batch_accel = small_batch_accel
         self.accel_max_batch = int(accel_max_batch)
         self.cluster_group_rows = int(cluster_group_rows)
@@ -269,10 +290,19 @@ class ShardedFlatIndex:
         return self._capacity // self._mp
 
     def _place(self, j: int, parts: Tuple[torch.Tensor, ...]) -> None:
-        """Publish shard j's buffers (built on slot (0, j)) on every slot
-        of its column; a slot on the same device shares the tensors."""
+        """Publish shard j's buffers on every slot of its column that
+        this rank owns; a slot on the same device shares the tensors."""
         for i in range(self._dp):
-            self._shards[i][j] = tuple(t.to(self.mesh.device(i, j)) for t in parts)
+            if self.mesh.is_local(i, j):
+                self._shards[i][j] = tuple(t.to(self.mesh.device(i, j)) for t in parts)
+
+    def _col_shard(self, j: int) -> Optional[Tuple[torch.Tensor, ...]]:
+        """Shard j's (matrix, sqnorms, valid) on this rank's first slot
+        of column j; None when another rank owns the column."""
+        for row in self._shards:
+            if row[j] is not None:
+                return row[j]
+        return None
 
     def _new_grid(self) -> None:
         self._shards = [[None] * self._mp for _ in range(self._dp)]
@@ -329,13 +359,17 @@ class ShardedFlatIndex:
         valid = np.zeros((self._capacity,), bool)
         valid[:n] = True
         # sqnorms in f32 from the master copy (the reference's formula)
-        parts = [
+        mats, sqs, vls = (
             row_sharded(self.mesh, torch.from_numpy(padded).to(self.store_dtype)),
             row_sharded(self.mesh, torch.from_numpy(_host_sqnorms(padded))),
             row_sharded(self.mesh, torch.from_numpy(valid)),
+        )
+        # [data row][shard] -> (matrix, sqnorms, valid); None on a slot
+        # another rank owns
+        self._shards = [
+            [None if m is None else (m, q, v) for m, q, v in zip(*row)]
+            for row in zip(mats, sqs, vls)
         ]
-        # [data row][shard] -> (matrix, sqnorms, valid)
-        self._shards = [list(zip(*row)) for row in zip(*parts)]
         self._dev_ntotal = n
         self._accel_struct = None
         self._dirty = False
@@ -410,9 +444,12 @@ class ShardedFlatIndex:
         end = start + n_new
         sq = _host_sqnorms(new_rows)
         for j in range(start // rp, -(-end // rp)):
+            shard = self._col_shard(j)
+            if shard is None:  # another rank appends to its own shards
+                continue
             lo, hi = max(start, j * rp), min(end, (j + 1) * rp)
-            dev = self.mesh.device(0, j)
-            m, s, v = (t.clone() for t in self._shards[0][j])
+            m, s, v = (t.clone() for t in shard)
+            dev = m.device
             a, b = lo - j * rp, hi - j * rp
             m[a:b] = torch.from_numpy(new_rows[lo - start : hi - start]).to(dev, m.dtype)
             s[a:b] = torch.from_numpy(sq[lo - start : hi - start]).to(dev)
@@ -466,10 +503,11 @@ class ShardedFlatIndex:
         per = []
         for j in range(self._mp):
             lo, hi = j * rp, min(self.ntotal, (j + 1) * rp)
-            if hi <= lo:
+            shard = self._col_shard(j)
+            if hi <= lo or shard is None:  # no rows, or another rank's
                 per.append(None)
                 continue
-            m, s, _ = self._shards[0][j]
+            m, s, _ = shard
             # scoring norms: the shard's master-f32 sqnorms, the same
             # refine function as the plain sharded scan
             g = build_clustered_groups(
@@ -506,9 +544,10 @@ class ShardedFlatIndex:
             return vals, idx
 
         out = self._per_slot(queries.to(torch.float32), k, local)
+        fb, esc = self._summed(stats)
         with self._stats_lock:
-            self.cluster_fallbacks += stats[0]
-            self.cluster_escalations += stats[1]
+            self.cluster_fallbacks += fb
+            self.cluster_escalations += esc
         return out
 
     # ------------------------------------------------------------------
@@ -554,54 +593,73 @@ class ShardedFlatIndex:
 
     def _per_slot(self, queries: torch.Tensor, k: int, local):
         """Run ``local(q_i, i, j)`` -> shard-local (vals, idx) on every
-        slot, globalize the ids and merge each data row over the model
-        axis; the rows' results concatenated on the lead slot."""
+        slot of this rank, globalize the ids and merge each data row over
+        the model axis; every row's result, concatenated on this rank's
+        lead slot."""
         b = queries.shape[0]
         if b % self._dp:
             raise ValueError(
                 f"batch {b} is not a multiple of the data axis ({self._dp}); "
                 "search() pads it"
             )
-        rp = self._rows_per
-        out_v, out_i = [], []
-        for i, row in enumerate(batch_sharded(self.mesh, queries)):
-            sets = []
-            for j, q in enumerate(row):
-                vals, idx = local(q, i, j)
-                vals, idx = _pad_k(vals, idx.to(torch.int64), k)
-                gidx = torch.where(
-                    torch.isneginf(vals) | (idx >= _PAD_IDX), _PAD_IDX, idx + j * rp
-                )
-                sets.append((vals, gidx))
-            v, ix = self._merge_row(i, sets, k)
-            out_v.append(v.to(self.device))
-            out_i.append(ix.to(self.device))
-        return torch.cat(out_v), torch.cat(out_i)
+        rp, bl = self._rows_per, b // self._dp
+        sets = {}
+        for i, j in self.mesh.local_slots():
+            q = queries[i * bl : (i + 1) * bl].to(self.mesh.device(i, j))
+            vals, idx = local(q, i, j)
+            vals, idx = _pad_k(vals, idx.to(torch.int64), k)
+            gidx = torch.where(
+                torch.isneginf(vals) | (idx >= _PAD_IDX), _PAD_IDX, idx + j * rp
+            )
+            sets[(i, j)] = (vals, gidx)
+        rows = self._merge_ring(sets, k) if self.merge == "ring" else self._merge_gathered(sets, k)
+        return torch.cat([v for v, _ in rows]), torch.cat([ix for _, ix in rows])
 
-    def _merge_row(self, i: int, sets, k: int):
-        """Exact global merge of one data row's per-shard candidates."""
-        s = len(sets)
-        if self.merge == "ring":
-            # each slot folds the ORIGINAL per-shard sets travelling
-            # around the ring into its accumulator: a (B, 2k) working
-            # set per step instead of allgather's (B, S k)
-            acc = list(sets)
-            trav = list(sets)
-            for _ in range(s - 1):
-                trav = [
-                    tuple(t.to(self.mesh.device(i, j)) for t in trav[(j - 1) % s])
-                    for j in range(s)
-                ]
-                acc = [
-                    _merge_candidates(acc[j][0], acc[j][1], trav[j][0], trav[j][1], k)
-                    for j in range(s)
-                ]
-            return acc[0]
-        lead = self.mesh.device(i, 0)
-        comb_v = torch.cat([v.to(lead) for v, _ in sets], dim=1)
-        comb_i = torch.cat([ix.to(lead) for _, ix in sets], dim=1)
-        v, sel = top_k(comb_v, k)  # shard-major, so positional = lower id
-        return v, comb_i.gather(1, sel)
+    def _merge_gathered(self, sets, k: int):
+        """allgather: every slot's candidates on this rank, the k best of
+        each row's shard-major concatenation (positional = lower id)."""
+        mesh = self.mesh
+        vals = collectives.all_gather(mesh, {s: v for s, (v, _) in sets.items()}, self.device)
+        idx = collectives.all_gather(mesh, {s: ix for s, (_, ix) in sets.items()}, self.device)
+        rows = []
+        for i in range(self._dp):
+            comb_v = torch.cat([vals[(i, j)] for j in range(self._mp)], dim=1)
+            comb_i = torch.cat([idx[(i, j)] for j in range(self._mp)], dim=1)
+            v, sel = top_k(comb_v, k)
+            rows.append((v, comb_i.gather(1, sel)))
+        return rows
+
+    def _merge_ring(self, sets, k: int):
+        """ring: each slot folds the ORIGINAL per-shard sets travelling
+        around its row's ring into its accumulator — a (B, 2k) working
+        set per step instead of allgather's (B, S k); after S-1 steps
+        every slot of the row holds the row's result."""
+        mesh = self.mesh
+        acc, trav = dict(sets), dict(sets)
+        for _ in range(self._mp - 1):
+            trav = collectives.ring_shift(mesh, trav)
+            acc = {s: _merge_candidates(*acc[s], *trav[s], k) for s in acc}
+        every = {mesh.rank(i, j) for i in range(self._dp) for j in range(self._mp)}
+        like_v, like_i = next(iter(sets.values()))
+        rows = []
+        for i in range(self._dp):
+            mine = [s for s in acc if s[0] == i]
+            v, ix = acc[mine[0]] if mine else (torch.empty_like(like_v), torch.empty_like(like_i))
+            if {mesh.rank(i, j) for j in range(self._mp)} != every:
+                # a rank without a slot of this row: the row's lead sends it
+                v = collectives.broadcast(mesh, v.to(self.device), mesh.rank(i, 0))
+                ix = collectives.broadcast(mesh, ix.to(self.device), mesh.rank(i, 0))
+            rows.append((v.to(self.device), ix.to(self.device)))
+        return rows
+
+    def _summed(self, stats) -> Tuple[int, int]:
+        """A (fell_back, escalated) pair summed over every rank."""
+        if not self.mesh.spans_processes:
+            return tuple(stats)
+        t = collectives.all_reduce(
+            self.mesh, torch.tensor(stats, dtype=torch.int64, device=self.device)
+        )
+        return tuple(int(c) for c in t.tolist())
 
     def search_device_raw(
         self, queries: torch.Tensor, k: int
@@ -620,11 +678,12 @@ class ShardedFlatIndex:
         out = self._per_slot(
             q, k, lambda qi, i, j: self._local_search(qi, self._shards[i][j], k, stats)
         )
-        # (fell_back, escalated) summed over every slot, counted by the
-        # call that made them (search and rerank alike)
+        # (fell_back, escalated) summed over every slot of every rank,
+        # counted by the call that made them (search and rerank alike)
+        fb, esc = self._summed(stats)
         with self._stats_lock:
-            self.fallback_rows += stats[0]
-            self.bounded_escalations += stats[1]
+            self.fallback_rows += fb
+            self.bounded_escalations += esc
         return out
 
     def search_device(
@@ -636,23 +695,24 @@ class ShardedFlatIndex:
         return _finalize(vals, idx, self.metric)
 
     def gather_rows_device(self, idx: torch.Tensor) -> torch.Tensor:
-        """Rows by global id across shards: each shard contributes the
-        rows it owns (a masked local take) and the contributions are
-        summed on the lead slot.  (B, C) -> (B, C, d) f32; an id no
-        shard owns gives a zero row."""
+        """Rows by global id across shards: each slot contributes the
+        rows its shard owns (a masked local take) into its data row's
+        block, and one all-reduce over the ranks sums the contributions
+        (the reference's ``psum``).  (B, C) -> (B, C, d) f32 on every
+        rank; an id no shard owns gives a zero row."""
         self._ensure_device()
         rp = self._rows_per
-        out = []
-        for i, row in enumerate(batch_sharded(self.mesh, idx.to(torch.int64))):
-            acc = 0.0
-            for j, part in enumerate(row):
-                x = self._shards[i][j][0]
-                local = part - j * rp
-                owned = (local >= 0) & (local < rp)
-                take = x[local.clamp(0, rp - 1)].to(torch.float32)
-                acc = acc + torch.where(owned[..., None], take, 0.0).to(self.device)
-            out.append(acc)
-        return torch.cat(out)
+        idx = idx.to(torch.int64)
+        bl = idx.shape[0] // self._dp
+        out = torch.zeros(tuple(idx.shape) + (self.d,), dtype=torch.float32, device=self.device)
+        for i, j in self.mesh.local_slots():
+            part = idx[i * bl : (i + 1) * bl].to(self.mesh.device(i, j))
+            x = self._shards[i][j][0]
+            local = part - j * rp
+            owned = (local >= 0) & (local < rp)
+            take = x[local.clamp(0, rp - 1)].to(torch.float32)
+            out[i * bl : (i + 1) * bl] += torch.where(owned[..., None], take, 0.0).to(self.device)
+        return collectives.all_reduce(self.mesh, out)
 
     def _rerank(self, queries, k, candidates, n_qubits, route_quantum=None):
         """The merged top-C, the candidates' rows gathered across shards,

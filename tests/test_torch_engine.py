@@ -278,7 +278,8 @@ def test_port_imports_no_jax():
         "       'models.train_cli', 'models.recall_eval', 'models.rerank_eval',\n"
         "       'models.distill', 'ops.cluster_topk', 'ops.circuit',\n"
         "       'index.native_store', 'utils.profiling', 'parallel.mesh',\n"
-        "       'parallel.sharded_index', 'parallel.elastic'}\n"
+        "       'parallel.sharded_index', 'parallel.elastic', 'parallel.collectives',\n"
+        "       'models.sequence_parallel'}\n"
         "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
         "banned = ('jax', 'qrag_tpu', 'pydantic', 'optax', 'orbax', 'flax')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"

@@ -681,3 +681,68 @@ def test_gpu_bf16_store_selects_a_block_at_a_time(cuda, monkeypatch, mode):
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
     assert {3, 4095, 4096} <= set(got[1][0].tolist())
+
+
+_TWO_RANK_SEARCH = """
+import os, sys
+import numpy as np
+import torch
+from qrag_tpu_torch.config import MeshConfig
+from qrag_tpu_torch.ops.cuda import fused_scan
+from qrag_tpu_torch.parallel import mesh
+from qrag_tpu_torch.parallel.sharded_index import ShardedFlatIndex
+
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+mesh.distributed_init("file://" + os.path.join(tmp, "store"), 2, rank, backend="gloo")
+with np.load(os.path.join(tmp, "inputs.npz")) as f:
+    x, q = f["x"], f["q"]
+grid = mesh.make_mesh(MeshConfig(data_parallel=1, model_parallel=2))
+out = {}
+for merge in ("allgather", "ring"):
+    idx = ShardedFlatIndex(x, grid, topk_mode="bounded", merge=merge)
+    for k in (10, 64):
+        before = sum(fused_scan.launches.values())
+        res = idx.search(q, k=k)
+        assert sum(fused_scan.launches.values()) > before  # K1 on this rank's shard
+        out[f"{merge}_{k}_idx"], out[f"{merge}_{k}_val"] = res.indices, res.scores
+np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+mesh.shutdown()
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_two_rank_gloo_search_matches_unsharded(cuda, tmp_path):
+    """Two gloo ranks on this card, one shard each (bounded, K1 on each
+    rank's shard): both merges on both ranks equal the unsharded index on
+    the card and the exact sort, indices bit for bit."""
+    import os
+    import subprocess
+    import sys
+
+    from qrag_tpu_torch.index.flat_index import DeviceFlatIndex
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2 * 8192, 64)).astype(np.float32)
+    x[5::7001] = x[3]  # duplicates across the two shards
+    q = rng.standard_normal((33, 64)).astype(np.float32)
+    np.savez(tmp_path / "inputs.npz", x=x, q=q)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANK_SEARCH, str(r), str(tmp_path)],
+                              env=env, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, outs[r][-3000:]
+    unsharded = DeviceFlatIndex.from_numpy(x, topk_mode="bounded", device=cuda)
+    exact = DeviceFlatIndex.from_numpy(x, topk_mode="exact", device="cpu")
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        for k in (10, 64):
+            want = unsharded.search(q, k=k)
+            for merge in ("allgather", "ring"):
+                np.testing.assert_array_equal(got[f"{merge}_{k}_idx"], want.indices)
+                np.testing.assert_allclose(got[f"{merge}_{k}_val"], want.scores,
+                                           rtol=1e-5, atol=1e-4)
+            np.testing.assert_array_equal(got[f"allgather_{k}_val"], got[f"ring_{k}_val"])
+            np.testing.assert_array_equal(want.indices, exact.search(q, k=k).indices)

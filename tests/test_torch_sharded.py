@@ -85,7 +85,10 @@ def test_mesh_shapes_and_rules(jmesh8):
     assert tmesh.make_mesh(MeshConfig(model_parallel=-1), device="cpu").shape["model"] == 1
     assert tmesh.mesh_devices("cpu", 5) == [torch.device("cpu")] * 5
     tmesh.distributed_init()  # single process: a no-op, as in JAX
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # an address joins a group (tests/test_torch_multihost.py); a rank
+    # that finds no GPU raises before any rendezvous instead of going on
+    # on the CPU
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         tmesh.distributed_init("localhost:1234", 2, 0)
     t = torch.arange(16.0).reshape(8, 2)
     assert [[s.shape for s in row] for row in tmesh.row_sharded(m, t)] == [[(2, 2)] * 4] * 2
