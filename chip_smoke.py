@@ -158,10 +158,32 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    (``launches_modes_path``) and every kernel's on the sharded path
    (``launches_sharded_path``).
 
+11. several processes (``multiprocess_path``): an NCCL world of one,
+   then two gloo ranks on the card for the 1M-row sharded and elastic
+   index and for the sharded trainer and sequence parallelism
+   (``launches_multiprocess_path``).
+
+12. the rest of the reference's public surface (``surface_path``), over
+   a default engine of phase 5's rows with three planted copies of one
+   row: (a) 8 ``/search`` (k=10) and 8 ``/search_rerank`` (k=10,
+   candidates=100) through ``serving.serve_in_thread``, identical to
+   the same requests through ``create_server``, against the f32 oracle
+   and the plain rerank composition (K1's launches:
+   ``launches_surface_path``); (b) ``ops.l2_topk`` / ``ops.ip_topk`` at
+   B=64 k=10 on the f32 store: identity, tie order and values of the
+   f32 oracle, ms; (c) a ``TrainedEmbedder`` of another seed
+   ``.load``-ed from ``artifacts/bi_encoder`` embeds 64 texts bit for
+   bit as one built from the directory, its ``params`` the file's; (d)
+   ``index.device_matrix`` is the snapshot's store (same storage), and
+   the README's quick start (``from qrag_tpu_torch import Document,
+   QragConfig``, ``QragEngine.from_faiss``) runs on the card over a
+   16,384 x 1536 FAISS file written by ``index.write_flat_index``.
+
 The last line is the JSON result; the line before it lists the kernels,
 the line before that the card.  ``python3 chip_smoke.py --only
 gather_vs_twin,scan_topk_vs_twin`` (or ``--only accel_quantum_path``
-for phase 9, ``--only modes_sharded_path`` for phase 10) runs the build
+for phase 9, ``--only modes_sharded_path`` for phase 10,
+``multiprocess_path`` for 11, ``surface_path`` for 12) runs the build
 and the named phases alone and prints no result.
 """
 
@@ -2370,7 +2392,7 @@ class Smoke:
         scorer, trace = rev.train_cross_encoder(cfg, pool, fit_idx, device=self.dev)
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        trained = scorer.params()
+        trained = scorer.params
         if scorer.dtype != ce.default_dtype(self.dev) or not all(np.isfinite(v) for _, v in trace):
             raise AssertionError(f"{label}: {scorer.dtype}, trace {trace}")
         # the CLS bias shifts every logit of a softmax row alike
@@ -2482,7 +2504,7 @@ class Smoke:
         if embedder.dtype != ce.default_dtype(self.dev) or not all(
                 np.isfinite(v) for _, v in trace):
             raise AssertionError(f"{label}: {embedder.dtype}, trace {trace}")
-        self._moved(label, init, embedder.params())
+        self._moved(label, init, embedder.params)
         recall = rcl.recall_at_k(embedder, chunks, hold_idx, cfg.k, cfg.queries_per_chunk,
                                  device=self.dev)
         print(f"{label} (c) train_bi_encoder on {self.dev}: {steps} steps in {run_s:.2f} s, "
@@ -3765,6 +3787,196 @@ class Smoke:
               f" vs {reports[0]['dense']['peak_mib']:.1f}; gloo all_gather on CUDA tensors: "
               f"{reports[0]['gloo_cuda_all_gather']}", flush=True)
 
+    # ------------------------------------------------------------- phase 12
+
+    def surface_path(self, n_rows=1_000_000):
+        """Phase 12, the rest of the reference's public surface: over a
+        default engine of phase 5's rows (with planted copies), (a)
+        ``serve_in_thread`` answering as ``create_server`` does, (b)
+        ``l2_topk`` / ``ip_topk`` on the f32 store against the f32
+        oracle, (d) ``device_matrix``; then (c) ``TrainedEmbedder.load``
+        and the README's quick start.  Returns the kernel launches of
+        (a)'s run."""
+        t0 = time.perf_counter()
+        self._free()
+        x = _unit_rows(n_rows)
+        x[list(SURFACE_COPIES)] = x[SURFACE_COPIES[0]]
+        engine, snap = self._engine(x, "surface path")
+        launches = self.serve_thread_check(engine, snap)
+        self.topk_surface(snap, x[SURFACE_COPIES[0]])
+        m = engine.index.device_matrix
+        if not (m.device.type == self.dev.type and m.dtype == snap.matrix.dtype
+                and m.shape == snap.matrix.shape
+                and m.data_ptr() == snap.matrix.data_ptr()):
+            raise AssertionError(f"device_matrix {m.device} {m.dtype} {tuple(m.shape)} is not "
+                                 "the snapshot's store")
+        print(f"(d) device_matrix: {m.device} {m.dtype} {tuple(m.shape)}, the snapshot's "
+              "storage (same data_ptr)", flush=True)
+        del engine, snap, x, m
+        self._free()
+        self.embedder_surface()
+        self.quick_start()
+        print(f"phase 12 (public surface) [{self.card}]: {time.perf_counter() - t0:.1f} s; "
+              f"launches {launches}", flush=True)
+        return launches
+
+    def serve_thread_check(self, engine, snap):
+        """(a) 8 /search (k=10) and 8 /search_rerank (k=10, C=100)
+        through ``serve_in_thread``: against the f32 oracle and the plain
+        rerank composition, and equal to ``create_server``'s answers."""
+        from qrag_tpu_torch.serving import serve_in_thread
+
+        unit = self._unit(12)
+        searches = [unit(b) for b in (1, 2, 4, 8, 16, 32, 64, 1)]
+        reranks = [unit(b) for b in (1, 2, 4, 8, 16, 32, 64, 1)]
+
+        def drive(port):
+            return (
+                [_post(port, "/search", {"vectors": q.tolist(), "k": 10}) for q in searches],
+                [_post(port, "/search_rerank", {"vectors": q.tolist(), "k": 10,
+                                                "candidates": 100}) for q in reranks],
+            )
+
+        server = serve_in_thread(engine)
+        try:
+            self._all_launches(reset=True)
+            got = drive(server.server_address[1])
+            counts = self._all_launches()
+        finally:
+            server.shutdown()
+            server.server_close()
+        missed = [key for key in (("bf16", 2), ("bf16", 3)) if counts[key] < 1]
+        if missed:
+            raise AssertionError(f"(a) serve_in_thread: K1 not launched for {missed}: {counts}")
+        with self._serve(engine) as port:
+            want = drive(port)
+        if got != want:
+            raise AssertionError("(a) serve_in_thread answers differ from create_server's")
+        ties = self._check_search(snap, zip(searches, got[0]))
+        self._check_rerank(snap, zip(reranks, got[1]))
+        print(f"(a) serve_in_thread: 8 /search and 8 /search_rerank (B=1..64) identical to "
+              f"create_server's, /search equal to the f32 oracle (tie reorders: {ties}), "
+              f"/search_rerank to the plain composition; launches {counts}", flush=True)
+        return {("surface", key): n for key, n in counts.items()}
+
+    def topk_surface(self, snap, planted):
+        """(b) ``l2_topk`` / ``ip_topk`` at B=64 k=10 on the f32 store:
+        identity, tie order and values of the f32 oracle; the planted
+        copies first, lower index first."""
+        torch = self.torch
+        from qrag_tpu_torch.ops import bounded_topk as bt
+        from qrag_tpu_torch.ops import ip_topk, l2_topk
+
+        q = self._unit(13)(64)
+        q[0] = planted
+        qt = torch.from_numpy(q).to(self.dev)
+        args = (qt, snap.matrix, 10)
+        calls = {
+            "l2_topk": (lambda: l2_topk(*args, corpus_sqnorms=snap.sqnorms,
+                                        valid_rows=snap.valid), "l2"),
+            "ip_topk": (lambda: ip_topk(*args, valid_rows=snap.valid), "ip"),
+        }
+        readings = []
+        for name, (call, metric) in calls.items():
+            vals, idx = call()
+            ov, oi = bt._exact_full_sort(qt, snap.matrix, snap.sqnorms, 10, metric, snap.valid)
+            if metric == "l2":
+                vals = -vals
+            if not torch.equal(idx, oi):
+                raise AssertionError(f"(b) {name}: indices differ from the f32 oracle")
+            if not torch.allclose(vals, ov, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"(b) {name}: values differ from the f32 oracle")
+            if idx[0, :3].tolist() != list(SURFACE_COPIES):
+                raise AssertionError(f"(b) {name}: planted copies {idx[0, :3].tolist()}")
+            readings.append(f"{name} {self._events_ms(call, 10):.3f} ms")
+        print(f"(b) l2_topk / ip_topk B=64 k=10 on the f32 store ({tuple(snap.matrix.shape)}): "
+              f"identity, tie order and values of the f32 oracle, planted copies "
+              f"{list(SURFACE_COPIES)} in order; {', '.join(readings)} (CUDA events, 10 calls) "
+              f"[{self.card}]", flush=True)
+
+    def embedder_surface(self):
+        """(c) a ``TrainedEmbedder`` of another seed, ``.load``-ed from
+        the shipped weights, embeds 64 texts bit for bit as one built
+        from the weights directory; its ``params`` are the file's."""
+        from qrag_tpu_torch.models.bi_encoder import TrainedEmbedder, _load_config
+        from qrag_tpu_torch.models.weights import params_from_npz
+        from qrag_tpu_torch.parallel.train import _WORDS
+
+        weights = "artifacts/bi_encoder"
+        rng = np.random.default_rng(12)
+        texts = [" ".join(rng.choice(_WORDS, size=12)) for _ in range(64)]
+        loaded = TrainedEmbedder(cfg=_load_config(weights), seed=7, device=self.dev)
+        before = loaded(texts)
+        loaded.load(weights)
+        got = loaded(texts)
+        want = TrainedEmbedder(weights_dir=weights, device=self.dev)(texts)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"(c) TrainedEmbedder.load: {np.abs(got - want).max()} from "
+                                 "weights_dir=")
+        if np.array_equal(before, got):
+            raise AssertionError("(c) TrainedEmbedder.load left the seed's weights")
+        with np.load(os.path.join(weights, "bi_encoder.npz")) as data:
+            ref = params_from_npz(data, loaded.cfg)
+        params = loaded.params
+        if callable(params) or any(not np.array_equal(params[n], a) for n, a in ref.items()):
+            raise AssertionError("(c) TrainedEmbedder.params differ from bi_encoder.npz")
+        print(f"(c) TrainedEmbedder(seed=7).load({weights}) on {self.dev}: 64 texts {got.shape} "
+              f"bit-equal to TrainedEmbedder(weights_dir=...), {loaded.dtype} activations; "
+              f"params: the {len(ref)} arrays of bi_encoder.npz", flush=True)
+
+    def quick_start(self):
+        """(d) The README's port quick start on the card, over a FAISS
+        file of 16,384 x 1536 unit rows written by ``write_flat_index``."""
+        import tempfile
+
+        torch = self.torch
+        from qrag_tpu_torch import Document, QragConfig
+        from qrag_tpu_torch.engine import QragEngine
+        from qrag_tpu_torch.index import append_metadata, write_flat_index
+        from qrag_tpu_torch.ops import bounded_topk as bt
+
+        t0 = time.perf_counter()
+        x = _unit_rows(16_384, seed=21, d=1536)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "corpus_faiss_index.faiss")
+            write_flat_index(path, x)
+            append_metadata(path, [f"chunk {i}" for i in range(x.shape[0])])
+            eng = QragEngine.from_faiss(path, config=QragConfig())
+        eng.warmup()
+        res = eng.search("climate debate", k=10)
+        out = eng.search_rerank("find the sponsor reads", k=10, candidates=100)
+        reranked = eng.rerank(
+            "find the advertisement",
+            [Document("a", "sponsored by acme"), Document("b", "politics talk")],
+            top_k=5, reranker_type="auto",
+        )
+        snap = eng.index.device_buffers()
+        if snap.matrix.device.type != self.dev.type:
+            raise AssertionError(f"quick start ran on {snap.matrix.device}")
+        qv = eng.embedder(["climate debate"])
+        qt = torch.from_numpy(qv).to(self.dev)
+        ov, oi = bt._exact_full_sort(qt, snap.matrix, snap.sqnorms, 10, "l2", snap.valid)
+        g = bt._goodness(qt, snap.matrix, "l2", snap.sqnorms, snap.valid)
+        ties = _check_exact(torch.from_numpy(res.indices).to(self.dev),
+                            -torch.from_numpy(res.scores).to(self.dev), oi, ov, g, atol=1e-4)
+        if res.metadata[0] != [f"chunk {i}" for i in res.indices[0]]:
+            raise AssertionError("quick start: metadata do not follow the indices")
+        self._check_rerank(snap, [(eng.embedder(["find the sponsor reads"]), out)])
+        docs = reranked["documents"]
+        if reranked["reranker_used"] != "quantum" or len(docs) != 2 or not all(
+            np.isfinite(score) for _, score in docs
+        ):
+            raise AssertionError(f"quick start rerank: {reranked}")
+        print(f"(d) README quick start on {snap.matrix.device} (QragEngine.from_faiss over "
+              f"16,384 x 1536, mock embedder): search equal to the f32 oracle (tie reorders: "
+              f"{ties}), search_rerank equal to the plain composition, rerank 'auto' -> "
+              f"{reranked['reranker_used']} {[(d.id, round(float(s), 4)) for d, s in docs]}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# Phase 12: rows of phase 5's corpus made copies of the first
+SURFACE_COPIES = (17, 500_017, 999_999)
+
 # Phase 11 (c): how far the sharded trainer (bf16, dp 2 x mp 1 and dp 1 x
 # mp 2) may sit from make_trainer on the same batches.  The first step's
 # gradient, per leaf, relative to make_trainer's (a gradient summed once
@@ -4348,6 +4560,7 @@ def main() -> int:
     launches.update(smoke.accel_quantum_path())
     launches.update(smoke.modes_sharded_path())
     launches.update(smoke.multiprocess_path())
+    launches.update(smoke.surface_path())
     kernels = []
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]
@@ -4363,6 +4576,7 @@ def main() -> int:
             "launches_quantum_path": launches.get(("quantum", key), 0),
             "launches_sharded_path": launches.get(("sharded", key), 0),
             "launches_multiprocess_path": launches.get(("multiprocess", key), 0),
+            "launches_surface_path": launches.get(("surface", key), 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4394,6 +4608,7 @@ def main() -> int:
         "launches_quantum_path": launches[("quantum", "gather_rows")],
         "launches_sharded_path": launches[("sharded", "gather_rows")],
         "launches_multiprocess_path": launches[("multiprocess", "gather_rows")],
+        "launches_surface_path": launches[("surface", "gather_rows")],
         **{key: row[key] for key in gather_keys},
         "other_shapes": {
             f"M={m}": {key: smoke.kernel_rows[("gather_rows", m)][key] for key in gather_keys}
@@ -4416,6 +4631,7 @@ def main() -> int:
                 "launches_modes_path": launches[("modes", ("scan_topk", arm))],
                 "launches_sharded_path": launches[("sharded", ("scan_topk", arm))],
                 "launches_multiprocess_path": launches[("multiprocess", ("scan_topk", arm))],
+                "launches_surface_path": launches[("surface", ("scan_topk", arm))],
                 **{key: row[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_composite_ms", "library_composite_device_ms",

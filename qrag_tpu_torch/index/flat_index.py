@@ -325,6 +325,12 @@ class DeviceFlatIndex:
                 self._upload_locked()
         return self._snapshot
 
+    @property
+    def device_matrix(self) -> torch.Tensor:
+        """The current snapshot's (capacity, d) store, uploaded if
+        needed: the same storage, not a copy."""
+        return self.device_buffers().matrix
+
     def fidelity_features(
         self, n_qubits: int, snap: Optional[DeviceBuffers] = None
     ) -> torch.Tensor:

@@ -200,12 +200,16 @@ class TrainedEmbedder:
             out.append(self.encode(toks, mask).float().cpu().numpy())
         return np.concatenate(out, axis=0)
 
+    @property
     def params(self) -> Dict[str, np.ndarray]:
+        """{dotted name: f32 array} of the weights, on the host — the
+        port's form of the reference's nested ``params`` tree
+        (``weights.params_from_jax_tree`` maps that tree onto it)."""
         return module_params(self.model)
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)
-        params_to_npz(self.params(), self.cfg, os.path.join(directory, "bi_encoder.npz"))
+        params_to_npz(self.params, self.cfg, os.path.join(directory, "bi_encoder.npz"))
         t = self.cfg.tower
         with open(os.path.join(directory, "config.json"), "w") as f:
             json.dump(
@@ -225,6 +229,23 @@ class TrainedEmbedder:
                 f,
                 indent=2,
             )
+
+    def load(self, directory: str) -> None:
+        """The weights of ``directory/bi_encoder.npz`` (``p0 ... pN``)
+        into this embedder's module, in place.  The file must fit the
+        current geometry (ValueError otherwise): its config.json is not
+        read and the module is not rebuilt."""
+        with np.load(os.path.join(directory, "bi_encoder.npz")) as data:
+            params = params_from_npz(data, self.cfg)
+            n_file = len(data.files)
+        have = {name: tuple(t.shape) for name, t in self.model.state_dict().items()}
+        bad = [name for name, a in params.items() if tuple(a.shape) != have[name]]
+        if bad or n_file != len(params):
+            raise ValueError(
+                f"{directory}: {n_file} arrays for the {len(params)} of this "
+                f"geometry; shapes differ at {bad[:3]}"
+            )
+        load_module(self.model, params)
 
 
 def _load_config(directory: str) -> Optional[BiEncoderConfig]:

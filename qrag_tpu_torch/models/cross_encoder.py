@@ -578,12 +578,16 @@ class CrossEncoderScorer:
 
     # -- persistence: the JAX package's flat npz + config.json -----------
 
+    @property
     def params(self) -> Dict[str, np.ndarray]:
+        """{dotted name: f32 array} of the weights, on the host — the
+        port's form of the reference's nested ``params`` tree
+        (``weights.params_from_jax_tree`` maps that tree onto it)."""
         return module_params(self.model)
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)
-        params_to_npz(self.params(), self.cfg, os.path.join(directory, "params.npz"))
+        params_to_npz(self.params, self.cfg, os.path.join(directory, "params.npz"))
         with open(os.path.join(directory, "config.json"), "w") as f:
             json.dump(asdict(self.cfg), f, indent=2)
 

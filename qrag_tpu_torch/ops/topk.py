@@ -300,6 +300,31 @@ def _finalize(vals: torch.Tensor, idx: torch.Tensor, metric: str):
     return vals, idx
 
 
+def ip_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    valid_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact inner-product top-k: (scores desc, indices), (B, k) each.
+    The f32 product and a stable sort, as the reference's ``_goodness``
+    + ``lax.top_k`` (no kernel: neither runs through Pallas)."""
+    return top_k(_goodness(queries, corpus, "ip", None, valid_rows), k)
+
+
+def l2_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    corpus_sqnorms: Optional[torch.Tensor] = None,
+    valid_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact squared-L2 top-k, FAISS semantics: (distances ascending,
+    indices), +inf where a row is masked."""
+    g = _goodness(queries, corpus, "l2", corpus_sqnorms, valid_rows)
+    return _finalize(*top_k(g, k), "l2")
+
+
 def flat_scan_topk(
     queries: torch.Tensor,
     corpus: torch.Tensor,

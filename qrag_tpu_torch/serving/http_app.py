@@ -343,6 +343,20 @@ def create_server(
     return server
 
 
+def serve_in_thread(
+    engine: QragEngine,
+    host: str = "127.0.0.1",
+    port: int = 0,
+    batching: bool = False,
+    **batcher_kwargs,
+) -> ThreadingHTTPServer:
+    """``create_server`` serving on a daemon thread (tests, embedding);
+    the caller shuts it down (and closes ``server.batcher``)."""
+    server = create_server(engine, host, port, batching=batching, **batcher_kwargs)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="qrag_tpu_torch HTTP server")
     parser.add_argument("--host", default=None)

@@ -257,10 +257,17 @@ def test_server_flags_not_ported(monkeypatch):
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     interpreter: neither jax, nor anything of the JAX package, nor
-    pydantic, optax, orbax or flax loads."""
+    pydantic, optax, orbax or flax loads.  The package and its
+    re-exporting subpackages load no kernel wrapper and no
+    ``torch.utils.cpp_extension`` (kernels build at first launch)."""
     code = (
         "import pkgutil, sys\n"
-        "import qrag_tpu_torch, chip_smoke\n"
+        "import qrag_tpu_torch, qrag_tpu_torch.ops, qrag_tpu_torch.index\n"
+        "import qrag_tpu_torch.serving\n"
+        "built = [m for m in sys.modules if m.startswith('qrag_tpu_torch.ops.cuda')\n"
+        "         or m.startswith('torch.utils.cpp_extension')]\n"
+        "assert not built, built\n"
+        "import chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    qrag_tpu_torch.__path__, 'qrag_tpu_torch.')]\n"
         "for name in names:\n"
@@ -279,7 +286,7 @@ def test_port_imports_no_jax():
         "       'models.distill', 'ops.cluster_topk', 'ops.circuit',\n"
         "       'index.native_store', 'utils.profiling', 'parallel.mesh',\n"
         "       'parallel.sharded_index', 'parallel.elastic', 'parallel.collectives',\n"
-        "       'models.sequence_parallel'}\n"
+        "       'models.sequence_parallel', 'ops', 'index', 'serving'}\n"
         "assert {'qrag_tpu_torch.' + m for m in new} <= set(names), names\n"
         "banned = ('jax', 'qrag_tpu', 'pydantic', 'optax', 'orbax', 'flax')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"

@@ -746,3 +746,49 @@ def test_gpu_two_rank_gloo_search_matches_unsharded(cuda, tmp_path):
                                            rtol=1e-5, atol=1e-4)
             np.testing.assert_array_equal(got[f"allgather_{k}_val"], got[f"ring_{k}_val"])
             np.testing.assert_array_equal(want.indices, exact.search(q, k=k).indices)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 200])
+def test_gpu_l2_ip_topk_match_cpu(cuda, k):
+    """``l2_topk`` / ``ip_topk`` (the f32 product and a stable sort, no
+    kernel) on the card equal their CPU results: identity and tie order
+    on planted duplicates, values within f32 summation-order error."""
+    from qrag_tpu_torch.ops import ip_topk, l2_topk
+
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((4096, 64)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[[100, 2000]] = x[3]
+    q = rng.standard_normal((8, 64)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    q[0] = x[3]
+    valid = np.ones(4096, bool)
+    valid[::7] = False
+    for vr in (None, torch.from_numpy(valid)):
+        for fn, kw in ((l2_topk, {"corpus_sqnorms": torch.from_numpy((x * x).sum(1))}),
+                       (ip_topk, {})):
+            want_v, want_i = fn(torch.from_numpy(q), torch.from_numpy(x), k, valid_rows=vr, **kw)
+            got_v, got_i = fn(torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda), k,
+                              valid_rows=None if vr is None else vr.to(cuda),
+                              **{n: t.to(cuda) for n, t in kw.items()})
+            assert got_i.is_cuda
+            assert torch.equal(got_i.cpu(), want_i)
+            torch.testing.assert_close(got_v.cpu(), want_v, rtol=1e-5, atol=1e-5)
+            if k >= 10 and fn is l2_topk:
+                assert got_i[0, :3].tolist() == [3, 100, 2000]
+
+
+@pytest.mark.gpu
+def test_gpu_device_matrix(cuda):
+    from qrag_tpu_torch.index import DeviceFlatIndex
+
+    x = np.random.default_rng(0).standard_normal((1000, 32)).astype(np.float32)
+    for store in ("float32", "bfloat16"):
+        index = DeviceFlatIndex.from_numpy(x, store_dtype=store, device=cuda)
+        m = index.device_matrix
+        assert m.is_cuda and m.shape == (1280, 32)
+        assert m.dtype == (torch.bfloat16 if store == "bfloat16" else torch.float32)
+        assert m.data_ptr() == index.device_buffers().matrix.data_ptr()
+        torch.testing.assert_close(m[:1000].float().cpu(), torch.from_numpy(x).to(m.dtype).float(),
+                                   rtol=0, atol=0)
