@@ -179,12 +179,27 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    QragConfig``, ``QragEngine.from_faiss``) runs on the card over a
    16,384 x 1536 FAISS file written by ``index.write_flat_index``.
 
+13. ``bench_torch.py``'s sections at the card's sizes (``bench_path``;
+   1,000,000 x 768 bf16 rows, B=1024), through the functions the
+   benchmark times: (a) ``bench_bounded_mode`` k=10 (4 steps) and (b)
+   k=100 (2 steps), 64 queries of each last step held against the f32
+   full-sort oracle over the same bf16 corpus (indices equal except
+   between rows whose f32 scores lie within 1e-5, values within 1e-5),
+   with the step's fallback and escalation flags; (c) ``run`` in
+   "verified" mode (2 steps; the same check, its fallback rows); (d)
+   ``bench_matmul_floor``; (e) ``bench_fused_rerank`` at C=100 (2
+   steps), its top-10 equal to the plain composition; each section's
+   ms, reps and peak memory, then a ``torch.profiler`` trace of the
+   headline's step.  K1 (planes 2 and 3) and K7 (f32) must launch
+   (``launches_bench_path``).
+
 The last line is the JSON result; the line before it lists the kernels,
 the line before that the card.  ``python3 chip_smoke.py --only
 gather_vs_twin,scan_topk_vs_twin`` (or ``--only accel_quantum_path``
 for phase 9, ``--only modes_sharded_path`` for phase 10,
-``multiprocess_path`` for 11, ``surface_path`` for 12) runs the build
-and the named phases alone and prints no result.
+``multiprocess_path`` for 11, ``surface_path`` for 12, ``bench_path``
+for 13) runs the build and the named phases alone and prints no
+result.
 """
 
 from __future__ import annotations
@@ -3973,6 +3988,142 @@ class Smoke:
               f"{reranked['reranker_used']} {[(d.id, round(float(s), 4)) for d, s in docs]}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ------------------------------------------------------------- phase 13
+
+    def bench_path(self):
+        """Phase 13, ``bench_torch.py``'s sections at the card's sizes
+        (1,000,000 x 768 bf16, B=1024) through the functions the
+        benchmark times: (a) the bounded headline, k=10, and (b) k=100,
+        each with 64 queries of the last step held against the f32
+        full-sort oracle over the same bf16 corpus; (c) the verified
+        section (the same check); (d) the matmul floor; (e) the fused
+        rerank at C=100 against the plain composition of the same port
+        functions; then a ``torch.profiler`` trace of the headline's step.
+        Returns the kernel launches of (a)-(e)."""
+        torch = self.torch
+        import bench_torch as bt
+
+        t0 = time.perf_counter()
+        self._free()
+        n, d, b, _ = bt.FULL_SIZES
+        dev, k100 = self.dev, 100
+        found = {}
+
+        def section(label, fn):
+            torch.cuda.reset_peak_memory_stats()
+            s0 = time.perf_counter()
+            out = fn()
+            found[label] = {"s": time.perf_counter() - s0,
+                            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+            return out
+
+        self._all_launches(reset=True)
+        head = section("(a) bounded k=10", lambda: bt.bench_bounded_mode(n, d, b, 10, 4,
+                                                                         device=dev))
+        wide = section("(b) bounded k=100", lambda: bt.bench_bounded_mode(n, d, b, k100, 2,
+                                                                          device=dev))
+        ver = section("(c) verified k=10", lambda: bt.run(n, d, b, 10, 2, "verified",
+                                                          device=dev))
+        floor = section("(d) matmul floor", lambda: bt.bench_matmul_floor(n, d, b, 4,
+                                                                          device=dev))
+        fused = section("(e) fused rerank C=100", lambda: bt.bench_fused_rerank(
+            n, d, b, "approx", iters=2, device=dev))
+        counts = self._all_launches()
+        launched = {"K1 bf16 planes=2": counts[("bf16", 2)],
+                    "K1 bf16 planes=3": counts[("bf16", 3)],
+                    "K7 float32": counts[("scan_topk", "float32")]}
+        missed = [name for name, c in launched.items() if c < 1]
+        if missed:
+            raise AssertionError(f"phase 13: not launched: {missed}; {counts}")
+
+        n_b = -(-n // 512) * 512
+        rounded = bt.make_corpus(n_b, d, torch.bfloat16, dev)  # bench_torch's cache
+        for label, (qps, ms, fb, t), k in (("(a)", head, 10), ("(b)", wide, k100)):
+            vals, idx, fell_back, escalated = t.out
+            ties = self._bench_oracle(rounded, t.q[:64], idx[:64], vals[:64], k)
+            print(f"{label} bench_bounded_mode k={k} [{self.card}]: {ms:.3f} ms/batch "
+                  f"({qps:,.0f} QPS), reps {[round(r, 3) for r in t.reps_ms]} ms, fallback "
+                  f"steps {fb} and escalated {t.counts[1]} of the last pass; last step: "
+                  f"fell_back={fell_back} escalated={escalated}; 64 queries equal to the f32 "
+                  f"oracle (reorders within 1e-5: {ties})", flush=True)
+        corpus = bt.make_corpus(n, d, torch.bfloat16, dev)
+        qps, ms, rows, t = ver
+        ties = self._bench_oracle(corpus, t.q[:64], t.out[1][:64], -t.out[0][:64], 10)
+        print(f"(c) run(mode='verified') [{self.card}]: {ms:.3f} ms/batch ({qps:,.0f} QPS), "
+              f"reps {[round(r, 3) for r in t.reps_ms]} ms, verified_fallback_rows {rows} "
+              f"(last pass), {int(t.out[2])} in the last step; 64 queries equal to the f32 "
+              f"oracle (reorders within 1e-5: {ties})", flush=True)
+        floor_ms, t = floor
+        print(f"(d) bench_matmul_floor [{self.card}]: {floor_ms:.3f} ms/batch, reps "
+              f"{[round(r, 3) for r in t.reps_ms]}; exact_over_floor {head[1] / floor_ms:.3f}",
+              flush=True)
+        base_ms, fused_ms, overhead, timed = fused
+        self._bench_fused_check(corpus, timed[True])
+        print(f"(e) bench_fused_rerank C=100 [{self.card}]: {base_ms:.3f} -> {fused_ms:.3f} "
+              f"ms/batch (+{overhead:.2f}%), reps {[round(r, 3) for r in timed[False].reps_ms]} "
+              f"/ {[round(r, 3) for r in timed[True].reps_ms]}; the fused top-10 equal to the "
+              "plain composition", flush=True)
+        for label, row in found.items():
+            print(f"  {label}: {row['s']:.1f} s, peak {row['peak_mib']:,.0f} MiB", flush=True)
+        bufs = bt.bounded_buffers(rounded)
+        q = head[3].q
+        self._profile_calls(lambda: bt.bounded_step(q, bufs, 10), 5,
+                            "bench_torch bounded_step B=1024 k=10 (the headline's queries)")
+        del bufs, q, head, wide, ver, floor, fused, t, corpus, rounded
+        bt._CORPUS_CACHE.clear()
+        self._free()
+        print(f"phase 13 (bench path) [{self.card}]: {time.perf_counter() - t0:.1f} s; "
+              f"launches {launched}", flush=True)
+        return {("bench", key): c for key, c in counts.items()}
+
+    def _bench_oracle(self, corpus, q, idx, vals, k):
+        """(B, k) results against the f32 full sort over ``corpus``:
+        indices equal except between rows whose f32 scores lie within
+        1e-5 of each other, values within 1e-5.  Returns the reorders."""
+        torch = self.torch
+        import bench_torch as bt
+        from qrag_tpu_torch.ops import bounded_topk as bto
+        from qrag_tpu_torch.ops.topk import _goodness
+
+        q32 = q.float()
+        sq = bt.row_sqnorms(corpus)
+        ov, oi = bto._exact_full_sort(q32, corpus, sq, k, "l2", None)
+        idx = idx.long()
+        diff = idx != oi
+        if bool(diff.any()):
+            rows, pos = torch.nonzero(diff, as_tuple=True)
+            g = _goodness(q32, corpus, "l2", sq, None)
+            gap = (g[rows, idx[rows, pos]] - ov[rows, pos]).abs()
+            if not bool((gap <= 1e-5).all()):
+                raise AssertionError(f"index mismatch beyond 1e-5 at rows {rows.tolist()}")
+        if not torch.allclose(vals.float(), ov, rtol=0, atol=1e-5):
+            raise AssertionError(f"values differ from the oracle by "
+                                 f"{float((vals.float() - ov).abs().max()):.3g}")
+        return int(diff.sum())
+
+    def _bench_fused_check(self, corpus, timed):
+        """The fused step's last (fidelity, idx) against the plain
+        composition: the goodness top-100, those rows' rotation features
+        computed from the rows, their fidelity, a stable top-10; and 64
+        queries' candidates against the f32 oracle."""
+        import bench_torch as bt
+        from qrag_tpu_torch.ops.statevector import fidelity_from_features, rotation_features
+        from qrag_tpu_torch.ops.topk import _goodness, goodness_topk, top_k
+
+        q = timed.q
+        sq = bt.row_sqnorms(corpus)
+        cv, cand = goodness_topk(_goodness(q, corpus, "l2", sq, None), 100, mode="approx",
+                                 oversample=1)
+        fid = fidelity_from_features(rotation_features(q.float(), 10),
+                                     rotation_features(corpus[cand].float(), 10, sq[cand]))
+        fv, sel = top_k(fid, 10)
+        vals, idx = timed.out
+        if not self.torch.equal(idx, cand.gather(1, sel)):
+            raise AssertionError("(e) the fused top-10 differs from the plain composition")
+        if not self.torch.allclose(vals, fv, rtol=0, atol=1e-6):
+            raise AssertionError("(e) fidelities differ from the plain composition")
+        self._bench_oracle(corpus, q[:64], cand[:64], cv[:64], 100)
+
 
 # Phase 12: rows of phase 5's corpus made copies of the first
 SURFACE_COPIES = (17, 500_017, 999_999)
@@ -4561,6 +4712,7 @@ def main() -> int:
     launches.update(smoke.modes_sharded_path())
     launches.update(smoke.multiprocess_path())
     launches.update(smoke.surface_path())
+    launches.update(smoke.bench_path())
     kernels = []
     for key, replaces in KERNELS.items():
         row = smoke.kernel_rows[key + (1024,)]
@@ -4577,6 +4729,7 @@ def main() -> int:
             "launches_sharded_path": launches.get(("sharded", key), 0),
             "launches_multiprocess_path": launches.get(("multiprocess", key), 0),
             "launches_surface_path": launches.get(("surface", key), 0),
+            "launches_bench_path": launches.get(("bench", key), 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4609,6 +4762,7 @@ def main() -> int:
         "launches_sharded_path": launches[("sharded", "gather_rows")],
         "launches_multiprocess_path": launches[("multiprocess", "gather_rows")],
         "launches_surface_path": launches[("surface", "gather_rows")],
+        "launches_bench_path": launches[("bench", "gather_rows")],
         **{key: row[key] for key in gather_keys},
         "other_shapes": {
             f"M={m}": {key: smoke.kernel_rows[("gather_rows", m)][key] for key in gather_keys}
@@ -4632,6 +4786,7 @@ def main() -> int:
                 "launches_sharded_path": launches[("sharded", ("scan_topk", arm))],
                 "launches_multiprocess_path": launches[("multiprocess", ("scan_topk", arm))],
                 "launches_surface_path": launches[("surface", ("scan_topk", arm))],
+                "launches_bench_path": launches[("bench", ("scan_topk", arm))],
                 **{key: row[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_composite_ms", "library_composite_device_ms",

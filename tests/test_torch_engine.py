@@ -255,8 +255,9 @@ def test_server_flags_not_ported(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imported in a fresh
-    interpreter: neither jax, nor anything of the JAX package, nor
+    """Every module of the port, chip_smoke.py, bench_torch.py and the
+    ported examples and scripts, imported in a fresh interpreter: neither
+    jax, nor anything of the JAX package, nor
     pydantic, optax, orbax or flax loads.  The package and its
     re-exporting subpackages load no kernel wrapper and no
     ``torch.utils.cpp_extension`` (kernels build at first launch)."""
@@ -267,7 +268,13 @@ def test_port_imports_no_jax():
         "built = [m for m in sys.modules if m.startswith('qrag_tpu_torch.ops.cuda')\n"
         "         or m.startswith('torch.utils.cpp_extension')]\n"
         "assert not built, built\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_torch, importlib.util\n"
+        "for path in ('examples/full_workflow_torch.py',\n"
+        "             'examples/latency_mode_demo_torch.py',\n"
+        "             'examples/sharded_streaming_demo_torch.py',\n"
+        "             'scripts/eval_distilled_torch.py', 'scripts/accel_real_embed_torch.py'):\n"
+        "    spec = importlib.util.spec_from_file_location(path[:-3].replace('/', '.'), path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    qrag_tpu_torch.__path__, 'qrag_tpu_torch.')]\n"
         "for name in names:\n"

@@ -792,3 +792,38 @@ def test_gpu_device_matrix(cuda):
         assert m.data_ptr() == index.device_buffers().matrix.data_ptr()
         torch.testing.assert_close(m[:1000].float().cpu(), torch.from_numpy(x).to(m.dtype).float(),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 100])
+def test_gpu_bench_bounded_step_matches_cpu(cuda, k):
+    """``bench_torch.bounded_step`` (the headline's step: K1 over a bf16
+    corpus used as scan and store) on the card against the same step on
+    the CPU (the plain twin): indices equal except between rows whose
+    f32 scores lie within 1e-5, values within 1e-5."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import bench_torch as bt
+    from qrag_tpu_torch.ops.cuda import fused_scan
+    from qrag_tpu_torch.ops.topk import _goodness
+
+    n, d, b = 16384, 256, 64
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    xt, qt = torch.from_numpy(x).bfloat16(), torch.from_numpy(q).bfloat16()
+    want_v, want_i, _, _ = bt.bounded_step(qt, bt.bounded_buffers(xt), k)
+    before = fused_scan.launches[("bf16", 3 if k > 16 else 2)]
+    got_v, got_i, _, _ = bt.bounded_step(qt.to(cuda), bt.bounded_buffers(xt.to(cuda)), k)
+    assert fused_scan.launches[("bf16", 3 if k > 16 else 2)] == before + 1
+    got_v, got_i = got_v.cpu(), got_i.cpu()
+    diff = got_i != want_i
+    if bool(diff.any()):
+        rows, pos = torch.nonzero(diff, as_tuple=True)
+        g = _goodness(qt, xt, "l2", None, None)
+        assert bool(((g[rows, got_i[rows, pos]] - want_v[rows, pos]).abs() <= 1e-5).all())
+    torch.testing.assert_close(got_v, want_v, rtol=0, atol=1e-5)
