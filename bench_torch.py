@@ -161,21 +161,25 @@ _CORPUS_CACHE: dict = {}
 
 
 def make_corpus(n: int, d: int, dtype, device) -> torch.Tensor:
-    """Unit-norm random corpus made on the device from seed 0,
-    ``CORPUS_CHUNK`` rows at a time (one f32 chunk alive at a time);
-    cached by (n, d, dtype, device)."""
+    """Unit-norm random corpus made on the device from seed 0
+    (``unit_rows``); cached by (n, d, dtype, device)."""
     device = torch.device(device)
     key = (n, d, dtype, str(device))
-    if key in _CORPUS_CACHE:
-        return _CORPUS_CACHE[key]
-    gen = torch.Generator(device).manual_seed(0)
-    corpus = torch.empty((n, d), dtype=dtype, device=device)
+    if key not in _CORPUS_CACHE:
+        _CORPUS_CACHE[key] = unit_rows(n, d, 0, dtype, device)
+    return _CORPUS_CACHE[key]
+
+
+def unit_rows(n: int, d: int, seed: int, dtype, device) -> torch.Tensor:
+    """(n, d) unit-norm Gaussian rows made on the device from ``seed``,
+    ``CORPUS_CHUNK`` rows at a time (one f32 chunk alive at a time)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rows = torch.empty((n, d), dtype=dtype, device=device)
     for s in range(0, n, CORPUS_CHUNK):
         x = torch.randn((min(CORPUS_CHUNK, n - s), d), generator=gen, device=device)
-        corpus[s : s + x.shape[0]] = (x / torch.linalg.norm(x, dim=1, keepdim=True)).to(dtype)
+        rows[s : s + x.shape[0]] = (x / torch.linalg.norm(x, dim=1, keepdim=True)).to(dtype)
         del x
-    _CORPUS_CACHE[key] = corpus
-    return corpus
+    return rows
 
 
 def unit_queries(b: int, d: int, seed: int, dtype, device) -> torch.Tensor:

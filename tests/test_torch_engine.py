@@ -255,8 +255,9 @@ def test_server_flags_not_ported(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py, bench_torch.py and the
-    ported examples and scripts, imported in a fresh interpreter: neither
+    """Every module of the port, chip_smoke.py, bench_torch.py, the
+    benchmark cells (``bench_cells``) and the ported examples and
+    scripts, imported in a fresh interpreter: neither
     jax, nor anything of the JAX package, nor
     pydantic, optax, orbax or flax loads.  The package and its
     re-exporting subpackages load no kernel wrapper and no
@@ -269,6 +270,9 @@ def test_port_imports_no_jax():
         "         or m.startswith('torch.utils.cpp_extension')]\n"
         "assert not built, built\n"
         "import chip_smoke, bench_torch, importlib.util\n"
+        "import bench_cells.common, bench_cells.trace, bench_cells.search_exact\n"
+        "import bench_cells.search_rerank, bench_cells.__main__\n"
+        "import bench_cells.control, bench_cells.spread\n"
         "for path in ('examples/full_workflow_torch.py',\n"
         "             'examples/latency_mode_demo_torch.py',\n"
         "             'examples/sharded_streaming_demo_torch.py',\n"
